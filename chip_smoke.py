@@ -1,0 +1,531 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. the card's name and power limit (nvidia-smi) and the torch/CUDA versions;
+2. build every hand-written kernel from ``src/repro_torch/csrc`` with nvcc
+   (one process per source, all at once);
+3. hold each kernel against its plain PyTorch version on the card, at the
+   JAX spec's check shapes and at the main path's shapes, and time the
+   kernel, the plain version and (where one exists) the one PyTorch call
+   that computes the same function;
+4. the main path: ``NomadProjection(PUBMED.replace(...)).fit(x)`` on cuda
+   at PubMed's published widths with N and the epoch count cut (listed in
+   ``reduced``), with every kernel's launch count read around it, the
+   loss checked to fall, a bit-equality check of two short reruns, and a
+   small fit held to the quality bands of the repo's tests;
+5. the kernel table (the contract line), then the card, then the result.
+
+It exits non-zero, printing no result, when no CUDA device is present or
+when the repository's ``src/`` is not beside it. Details of every check
+are written to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
+# NVIDIA H100 SXM data sheet: fp32 on CUDA cores (no tensor cores), HBM3 rate
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# the main path: PubMed's published widths, N and epochs cut to fit one call
+MAIN_N = 1_000_000
+MAIN_EPOCHS = 4
+MAIN_COMPONENTS = 4096
+REDUCED = [
+    "n_points 24,000,000 -> 1,000,000 (one card, one call's time limit)",
+    f"n_epochs 60 -> {MAIN_EPOCHS}",
+    "data: seeded Gaussian mixture (4096 components at dim 768) in place of PubMed BERT vectors",
+]
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _gen(device, seed):
+    import torch
+
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def nomad_inputs(B, k, S, K, d, device, seed=0):
+    """The JAX spec's input distribution (``nomad_step/ops.py:_make_inputs``)."""
+    import torch
+
+    g = _gen(device, seed)
+    n = lambda *s: torch.randn(s, generator=g, device=device) * 3.0  # noqa: E731
+    u = lambda *s: torch.rand(s, generator=g, device=device)  # noqa: E731
+    own = torch.randint(0, K, (B,), generator=g, device=device, dtype=torch.int32)
+    return n(B, d), n(B, k, d), u(B, k), n(B, S, d), u(B, S), n(K, d), u(K), own
+
+
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def _close(got, want, rtol, atol) -> bool:
+    import torch
+
+    return bool(torch.all((got - want).abs() <= atol + rtol * want.abs()))
+
+
+def check_nomad_step(device, shapes, main_shape):
+    """K1 forward and backward against the plain versions.
+
+    Check shapes: the spec's (rtol, atol) = (2e-5, 2e-5), gbar = 1/B (the
+    batch mean's cotangent, as on the main path). Main shape: every output
+    is a sum over K = 4096 signed terms whose rounding error scales with
+    the summed magnitudes, not the (cancelled) result, so atol is 2e-5 of
+    the output's largest magnitude there.
+    """
+    import torch
+
+    from repro_torch.kernels.nomad_step import ops
+
+    rows = []
+    for shape in list(shapes) + [main_shape]:
+        B, k, S, K, d = shape
+        args = nomad_inputs(B, k, S, K, d, device, seed=sum(shape))
+        gbar = torch.full((B,), 1.0 / B, device=device)
+        loss, m = ops.nomad_step_fwd_cuda(*args)
+        loss_p, m_p = ops.nomad_step_fwd_plain(*args)
+        grads = ops.nomad_step_bwd_cuda(*args, m, gbar)
+        grads_p = ops.nomad_step_bwd_plain(*args, m_p, gbar)
+        torch.cuda.synchronize()
+        outs = {"loss": (loss, loss_p), "m": (m, m_p)}
+        outs.update(zip(("g_i", "g_pos", "g_neg"), zip(grads, grads_p)))
+        errs, ok = {}, True
+        for name, (g, w) in outs.items():
+            atol = ops.TOL[1] if shape != main_shape else ops.TOL[1] * float(w.abs().max())
+            errs[name] = _max_err(g, w)
+            ok &= bool(torch.isfinite(g).all()) and _close(g, w, ops.TOL[0], atol)
+        rows.append({"shape": shape, "max_abs_err": errs, "ok": ok})
+        if not ok:
+            raise AssertionError(f"nomad_step disagrees with its plain version at {shape}: {errs}")
+    B, k, S, K, d = main_shape
+    args = nomad_inputs(B, k, S, K, d, device, seed=1)
+    gbar = torch.full((B,), 1.0 / B, device=device)
+    _, m = ops.nomad_step_fwd_cuda(*args)
+    fwd_flops = B * (K * (3 * d + 4) + (k + S) * (3 * d + 12))
+    in_words = B * d + B * k * d + B * k + B * S * d + B * S + K * d + K + B
+    bwd_flops = B * (K * (5 * d + 4) + (k + S) * (8 * d + 8))
+    timing = {
+        "nomad_step_fwd": {
+            "ms": time_ms(lambda: ops.nomad_step_fwd_cuda(*args), reps=50),
+            "plain_ms": time_ms(lambda: ops.nomad_step_fwd_plain(*args)),
+            "bound": bound_ms(fwd_flops, 4.0 * (in_words + 2 * B)),
+            "library_ms": None,
+            "max_abs_err": max(max(r["max_abs_err"]["loss"], r["max_abs_err"]["m"]) for r in rows),
+        },
+        "nomad_step_bwd": {
+            "ms": time_ms(lambda: ops.nomad_step_bwd_cuda(*args, m, gbar), reps=50),
+            "plain_ms": time_ms(lambda: ops.nomad_step_bwd_plain(*args, m, gbar)),
+            "bound": bound_ms(bwd_flops, 4.0 * (in_words + 2 * B + B * d + B * k * d + B * S * d)),
+            "library_ms": None,
+            "max_abs_err": max(max(r["max_abs_err"][g] for g in ("g_i", "g_pos", "g_neg")) for r in rows),
+        },
+    }
+    return rows, timing
+
+
+def check_kmeans_assign(device, shapes, main_shape):
+    """K2 against its plain version by the JAX spec's oracle rule: minimum
+    distances within (1e-4, 1e-4), chosen centroids distance-equivalent."""
+    import torch
+
+    from repro_torch.kernels.kmeans_assign import ops
+
+    rows = []
+    for i, (n, k, d) in enumerate(list(shapes) + [main_shape]):
+        g = _gen(device, 100 + i)
+        x = torch.randn(n, d, generator=g, device=device)
+        c = torch.randn(k, d, generator=g, device=device)
+        got = ops.assign_nearest_cuda(x, c)
+        want = ops.assign_nearest_plain(x, c)
+        torch.cuda.synchronize()
+        ops.oracle_check(x, c, got, want)  # raises on disagreement
+        rows.append({
+            "shape": (n, k, d),
+            "max_abs_err": _max_err(got[1], want[1]),
+            "argmin_equal_frac": float((got[0] == want[0]).float().mean()),
+            "ok": True,
+        })
+    n, k, d = main_shape
+    g = _gen(device, 7)
+    x = torch.randn(n, d, generator=g, device=device)
+    c = torch.randn(k, d, generator=g, device=device)
+
+    def library():  # two calls: the distance matrix, then its row minimum
+        return torch.cdist(x, c, compute_mode="use_mm_for_euclid_dist").min(-1)
+
+    timing = {"kmeans_assign": {
+        "ms": time_ms(lambda: ops.assign_nearest_cuda(x, c)),
+        "plain_ms": time_ms(lambda: ops.assign_nearest_plain(x, c)),
+        "library_ms": time_ms(library),
+        "library_call": "torch.cdist(x, c, compute_mode='use_mm_for_euclid_dist').min(-1) (two calls)",
+        "bound": bound_ms(2.0 * n * k * d + 2.0 * n * k, 4.0 * (n * d + k * d + 2 * n)),
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+    }}
+    return rows, timing
+
+
+def check_pairwise(device, shapes, cand_shape, cell_shape):
+    """K3 against its plain version: the spec's (2e-5, 2e-5) at its check
+    shapes; at D = 768 the error bound scaled by ‖x‖² + ‖y‖²
+    (``pairwise/ops.py:allowed_error``)."""
+    import torch
+
+    from repro_torch.kernels.pairwise import ops
+
+    rows = []
+    cases = [(None, s) for s in shapes] + [(None, cand_shape), (cell_shape[0], cell_shape[1:])]
+    for i, (batch, (n, m, d)) in enumerate(cases):
+        g = _gen(device, 200 + i)
+        if batch is None:
+            x = torch.randn(n, d, generator=g, device=device)
+            y = torch.randn(m, d, generator=g, device=device)
+        else:  # in-cell: each cell against itself
+            x = y = torch.randn(batch, n, d, generator=g, device=device)
+        got = ops.pairwise_dist2_cuda(x, y)
+        want = ops.pairwise_dist2_plain(x, y)
+        torch.cuda.synchronize()
+        if d <= 128:
+            ok = _close(got, want, *ops.SPEC_TOL)
+        else:
+            ok = bool(torch.all((got - want).abs() <= ops.allowed_error(x, y)))
+        rows.append({"batch": batch, "shape": (n, m, d), "max_abs_err": _max_err(got, want), "ok": ok})
+        if not ok:
+            raise AssertionError(f"pairwise disagrees with its plain version: {rows[-1]}")
+
+    def timed(x, y, batch):
+        n, m, d = x.shape[-2], y.shape[-2], x.shape[-1]
+        b = batch or 1
+        return {
+            "ms": time_ms(lambda: ops.pairwise_dist2_cuda(x, y)),
+            "plain_ms": time_ms(lambda: ops.pairwise_dist2_plain(x, y)),
+            "library_ms": time_ms(lambda: torch.cdist(x, y, compute_mode="use_mm_for_euclid_dist")),
+            "library_call": "torch.cdist(x, y, compute_mode='use_mm_for_euclid_dist') (distances, not squared)",
+            "bound": bound_ms(b * (2.0 * n * m * d + 4.0 * n * m), 4.0 * b * (n * d + m * d + n * m)),
+        }
+
+    g = _gen(device, 9)
+    n, m, d = cand_shape
+    x = torch.randn(n, d, generator=g, device=device)
+    y = torch.randn(m, d, generator=g, device=device)
+    cand = timed(x, y, None)
+    cand["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    b, n, _, d = cell_shape
+    xc = torch.randn(b, n, d, generator=g, device=device)
+    cell = timed(xc, xc, b)
+    return rows, {"pairwise": cand, "pairwise[in-cell batch]": cell}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path
+# ---------------------------------------------------------------------------
+
+
+def main_path(device):
+    import torch
+
+    from repro_torch.configs import PUBMED
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.kernels import registry
+
+    cfg = PUBMED.replace(n_points=MAIN_N, n_epochs=MAIN_EPOCHS)
+    t0 = time.time()
+    x, _labels = gaussian_mixture(MAIN_N, cfg.dim, n_components=MAIN_COMPONENTS, seed=0)
+    data_s = time.time() - t0
+
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    registry.reset_launch_counts()
+    res = NomadProjection(cfg, device=device).fit(x)
+    launches = registry.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
+
+    emb = res.embedding
+    if emb.shape != (MAIN_N, cfg.out_dim) or not np.isfinite(emb).all():
+        raise AssertionError(f"embedding not finite of shape {(MAIN_N, cfg.out_dim)}: {emb.shape}")
+    if not res.losses[-1] < res.losses[0]:
+        raise AssertionError(f"loss did not fall: {res.losses}")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+
+    # determinism: two short fits from one seed and one index are bit-equal
+    short = cfg.replace(n_epochs=2)
+    e1 = NomadProjection(short, device=device).fit(x, index=res.index).embedding
+    e2 = NomadProjection(short, device=device).fit(x, index=res.index).embedding
+    if not np.array_equal(e1, e2):
+        raise AssertionError("two fits from one seed and index differ")
+    profile = epoch_profile(device, cfg, res)
+    quality = embedding_quality(x, emb, device)
+    return {
+        "config": {k: getattr(cfg, k) for k in (
+            "n_points", "dim", "n_clusters", "n_neighbors", "n_noise",
+            "n_exact_negatives", "batch_size", "kmeans_iters", "n_epochs")},
+        "capacity": cfg.cluster_capacity,
+        "steps_per_epoch": cfg.resolved_steps_per_epoch(),
+        "reduced": REDUCED,
+        "data_s": data_s,
+        "stage_s": res.stage_s,
+        "wall_s": res.wall_time_s,
+        "epoch_s": res.epoch_times,
+        "losses": res.losses,
+        "stragglers": res.index_build_stragglers,
+        "peak_device_gb": peak_gb,
+        "launches": launches,
+        "rerun_bit_equal": True,
+        "epoch_profile": profile,
+        "quality": quality,
+    }
+
+
+def _knn_on_card(a, q_idx, k, device, chunk=256):
+    """Exact k nearest neighbours (self excluded) of rows ``q_idx`` of ``a``."""
+    import torch
+
+    at = torch.as_tensor(a, device=device, dtype=torch.float32)
+    q = torch.as_tensor(q_idx, device=device)
+    out = []
+    for s in range(0, len(q_idx), chunk):
+        qb = q[s : s + chunk]
+        d2 = torch.cdist(at[qb], at, compute_mode="use_mm_for_euclid_dist")
+        d2[torch.arange(len(qb), device=device), qb] = float("inf")
+        out.append(d2.topk(k, largest=False).indices.cpu().numpy())
+    return np.concatenate(out)
+
+
+def embedding_quality(x, emb, device, n_queries=2000, k=10, seed=0):
+    """The repo's quality metrics on the main path's embedding: NP@k over
+    ``n_queries`` queries (exact kNN on the card, both spaces) and random
+    triplet accuracy over 20,000 triplets (as ``repro.metrics`` computes
+    them)."""
+    n = x.shape[0]
+    rng = np.random.default_rng(seed)
+    q = rng.choice(n, size=n_queries, replace=False)
+    hi, lo = _knn_on_card(x, q, k, device), _knn_on_card(emb, q, k, device)
+    np_k = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(hi, lo)]))
+    rng = np.random.default_rng(seed)  # a fresh draw, as random_triplet_accuracy makes
+    i, j, l = (rng.integers(0, n, 20_000) for _ in range(3))
+    ok = (i != j) & (j != l) & (i != l)
+    i, j, l = i[ok], j[ok], l[ok]
+
+    def d2(a, u, v):
+        diff = a[u].astype(np.float32) - a[v].astype(np.float32)
+        return np.sum(diff * diff, -1)
+
+    rta = float(np.mean((d2(x, i, j) < d2(x, i, l)) == (d2(emb, i, j) < d2(emb, i, l))))
+    return {"np10": np_k, "np10_chance": k / n, "rta": rta, "n_queries": n_queries}
+
+
+def epoch_profile(device, cfg, res):
+    """One more epoch of the main path from the fitted θ: its wall time
+    unprofiled, then under torch.profiler the device time of every kernel
+    it ran. busy_share = device time / unprofiled wall (one stream)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.strategy import LocalStrategy
+
+    theta0 = np.zeros((res.index.n_clusters * res.index.capacity, cfg.out_dim), np.float32)
+    theta0[res.index.perm] = res.embedding
+    strategy = LocalStrategy()
+    theta = strategy.prepare(cfg, "nomad", res.index, theta0, device)
+    lr = cfg.resolved_lr0() / cfg.n_epochs
+    torch.cuda.synchronize()
+    t0 = time.time()
+    strategy.run_epoch(theta, 0, lr, lr)
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        strategy.run_epoch(theta, 1, lr, lr)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "steps": cfg.resolved_steps_per_epoch(),
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if busy_ms > 0 else None,
+        "busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
+        "top_kernels_ms": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in top],
+    }
+
+
+def small_quality(device):
+    """The bands of tests/test_nomad_quality.py on its own small mixture,
+    scored here with exact kNN on the card: NP@10 > 10x chance, cluster
+    purity > 0.9."""
+    import torch
+
+    from repro_torch.configs import NomadConfig
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    cfg = NomadConfig(n_points=5000, dim=32, n_clusters=8, n_neighbors=15, n_noise=32,
+                      n_exact_negatives=8, batch_size=512, n_epochs=25)
+    x, labels = gaussian_mixture(5000, 32, n_components=8, seed=0)
+    emb = NomadProjection(cfg, device=device).fit(x).embedding
+
+    def knn(a, q_idx, k):
+        a = torch.as_tensor(a, device=device, dtype=torch.float32)
+        d2 = torch.cdist(a[q_idx], a)
+        d2[torch.arange(len(q_idx)), q_idx] = float("inf")
+        return d2.topk(k, largest=False).indices.cpu().numpy()
+
+    q = torch.as_tensor(np.random.default_rng(0).choice(5000, 500, replace=False), device=device)
+    hi, lo = knn(x, q, 10), knn(emb, q, 10)
+    np10 = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(hi, lo)]))
+    purity = float(np.mean(labels[lo] == labels[q.cpu().numpy(), None]))
+    if not (np10 > 10 * 10 / 5000 and purity > 0.9):
+        raise AssertionError(f"small fit out of band: NP@10 {np10}, purity {purity}")
+    return {"np10": np10, "purity": purity, "np10_floor": 10 * 10 / 5000, "purity_floor": 0.9}
+
+
+# ---------------------------------------------------------------------------
+
+
+NOMAD_SHAPES = [(512, 15, 16, 64, 2), (100, 5, 4, 33, 2), (64, 3, 8, 100, 3), (777, 15, 16, 130, 2)]
+NOMAD_MAIN = (8192, 15, 16, 4096, 2)
+KMEANS_SHAPES = [(512, 256, 64), (1000, 17, 32), (64, 512, 128), (513, 255, 48)]
+KMEANS_MAIN = (16384, 4096, 768)
+PAIRWISE_SHAPES = [(96, 128, 64), (100, 60, 33), (8, 257, 128), (64, 64, 16)]
+PAIRWISE_CAND = (16384, 4096, 768)
+PAIRWISE_CELL = (256, 305, 305, 768)  # 256 cells of capacity 305 against themselves
+
+TPU_KERNELS = [
+    ("K1f nomad_step_fwd", "src/repro/kernels/nomad_step/nomad_step.py:166", "nomad_step_fwd"),
+    ("K1b nomad_step_bwd", "src/repro/kernels/nomad_step/nomad_step.py:201", "nomad_step_bwd"),
+    ("K2 kmeans_assign", "src/repro/kernels/kmeans_assign/kmeans_assign.py:53", "kmeans_assign"),
+    ("K3 pairwise", "src/repro/kernels/pairwise/pairwise.py:59", "pairwise"),
+    ("K4f cauchy_mean_fwd", "src/repro/kernels/cauchy_mean/cauchy_mean.py:83", None),
+    ("K4b cauchy_mean_bwd", "src/repro/kernels/cauchy_mean/cauchy_mean.py:104", None),
+    ("K5f frozen_attract_fwd", "src/repro/kernels/frozen_attract/frozen_attract.py:71", None),
+    ("K5b frozen_attract_bwd", "src/repro/kernels/frozen_attract/frozen_attract.py:92", None),
+]
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def kernel_phases(device):
+    """Phases 2 and 3: build every kernel, then check and time each one."""
+    from repro_torch.kernels import _build
+
+    t0 = time.time()
+    libs = _build.build()
+    build_s = time.time() - t0
+    ptxas = {n: [ln.strip() for ln in _build.ptxas_report(n).splitlines() if "Used" in ln or "spill" in ln]
+             for n in libs}
+    print(json.dumps({"build_s": build_s, "ptxas": ptxas}), flush=True)
+    checks, timing = {}, {}
+    for name, fn, args in (
+        ("nomad_step", check_nomad_step, (NOMAD_SHAPES, NOMAD_MAIN)),
+        ("kmeans_assign", check_kmeans_assign, (KMEANS_SHAPES, KMEANS_MAIN)),
+        ("pairwise", check_pairwise, (PAIRWISE_SHAPES, PAIRWISE_CAND, PAIRWISE_CELL)),
+    ):
+        rows, t = fn(device, *args)
+        checks[name] = rows
+        timing.update(t)
+        print(json.dumps({"checked": name, "rows": rows, "timing": t}), flush=True)
+    return build_s, checks, timing
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import registry  # fails before any output without src/
+
+    device = torch.device("cuda", 0)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    card = card_line()
+    print(json.dumps({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+                      "python": sys.version.split()[0]}), flush=True)
+
+    build_s, checks, timing = kernel_phases(device)
+
+    main_res = main_path(device)
+    print(json.dumps({"main_path": main_res}), flush=True)
+    quality = small_quality(device)
+    print(json.dumps({"small_quality": quality}), flush=True)
+
+    kernels = []
+    for name in ("nomad_step_fwd", "nomad_step_bwd", "kmeans_assign", "pairwise"):
+        k, t = registry.get(name), timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+            "launches": main_res["launches"][name], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            "library_call": t.get("library_call"),
+        })
+    table = [{"kernel": label, "replaces": where, "ported": port is not None,
+              "checked_on_card": port is not None
+              and port.removesuffix("_fwd").removesuffix("_bwd") in checks}
+             for label, where, port in TPU_KERNELS]
+    record = {"card": card, "build_s": build_s, "checks": checks, "timing": timing,
+              "main_path": main_res, "small_quality": quality, "tpu_kernels": table,
+              "kernels": kernels}
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1, default=str)
+    print(json.dumps({"tpu_kernels": table}))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,268 @@
+"""NOMAD Projection front end (paper §3, end to end), local fit on one device.
+
+Method selection:
+* ``"nomad"``  — Eq. 3: remote cells via means (M̃), own cell sampled (M).
+* ``"infonc"`` — Eq. 2: the InfoNC-t-SNE baseline; all negatives drawn
+  uniformly from the full support.
+
+Sampling conventions (paper §3.3): heads i uniform over points; noise tails
+uniform over points; |M| = n_noise. Sampling (:func:`sample_step_rows`) is
+kept apart from the update (:func:`step_update`), so a test can hand both
+frameworks the same rows. Random numbers come from ``torch.Generator``s
+seeded from (seed, epoch, step) in place of ``jax.random.fold_in`` keys, so
+a fit repeats bit for bit on one device but draws other rows than the JAX
+package does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import NomadConfig
+from repro_torch.core import losses
+from repro_torch.core.pca import pca_init
+from repro_torch.index.ann import AnnIndex
+from repro_torch.index.build import IndexBuilder, resolve_device, seeded_generator, synchronize
+
+# ---------------------------------------------------------------------------
+# Sampling helpers (cluster-major layout)
+# ---------------------------------------------------------------------------
+
+
+def sample_points(gen: torch.Generator, n: int, cum_counts: torch.Tensor, capacity: int, total: int):
+    """n uniform valid points among ``total``. Returns (rows, cluster_ids)."""
+    u = torch.randint(0, total, (n,), generator=gen, device=cum_counts.device, dtype=cum_counts.dtype)
+    cluster = torch.searchsorted(cum_counts, u, right=True)
+    start = torch.where(cluster > 0, cum_counts[(cluster - 1).clamp_min(0)], 0)
+    return cluster * capacity + (u - start), cluster
+
+
+def sample_in_cluster(gen: torch.Generator, cluster_ids: torch.Tensor, counts: torch.Tensor, capacity: int, s: int):
+    """(B,) cluster ids → (B, s) uniform valid rows within each cluster."""
+    c = counts[cluster_ids]  # (B,)
+    u = torch.rand((cluster_ids.shape[0], s), generator=gen, device=counts.device)
+    slot = torch.floor(u * c[:, None]).to(torch.int64)
+    slot = torch.minimum(slot, (c - 1)[:, None])
+    return cluster_ids[:, None] * capacity + slot
+
+
+def local_means(theta_rows: torch.Tensor, counts: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Masked per-cluster means of positions: (K·C, d) → (K, d)."""
+    K = counts.shape[0]
+    th = theta_rows.reshape(K, capacity, -1).float()
+    valid = (torch.arange(capacity, device=counts.device)[None, :] < counts[:, None]).float()
+    sums = torch.sum(th * valid[:, :, None], 1)
+    return sums / torch.clamp_min(counts.float(), 1.0)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# The SGD step
+# ---------------------------------------------------------------------------
+
+
+def sample_step_rows(gen: torch.Generator, idx: dict, cfg: NomadConfig, method: str):
+    """The rows one step draws: (rows (B,), clusters (B,), neg_rows (B, S)
+    for "nomad" or (B, n_noise) for "infonc")."""
+    B, C = cfg.batch_size, cfg.cluster_capacity
+    rows, cl = sample_points(gen, B, idx["cum_counts"], C, idx["total"])
+    if method == "infonc":
+        neg_rows, _ = sample_points(gen, B * cfg.n_noise, idx["cum_counts"], C, idx["total"])
+        return rows, cl, neg_rows.reshape(B, cfg.n_noise)
+    return rows, cl, sample_in_cluster(gen, cl, idx["counts"], C, cfg.n_exact_negatives)
+
+
+def step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, *, cfg, method="nomad", n_total=None):
+    """One sparse SGD step on the given rows; updates ``theta`` in place
+    (only the touched rows move) and returns the batch-mean loss.
+
+    The three scatters sum duplicate rows in the JAX package's order
+    (heads, then positives, then negatives) with ``index_put_(accumulate=
+    True)``, whose CUDA path sorts the indices and adds in a fixed order:
+    no float atomics, so a step repeats bit for bit.
+    """
+    n_total = n_total or cfg.n_points
+    pos_rows = idx["knn_idx"][rows]  # (B, k)
+    pos_w = idx["knn_w"][rows]
+    th_i = theta[rows].requires_grad_()
+    th_pos = theta[pos_rows].requires_grad_()
+    th_neg = theta[neg_rows].requires_grad_()
+    if method == "infonc":
+        loss = losses.infonc_tsne_loss(th_i, th_pos, pos_w, th_neg)
+    else:
+        loss = losses.nomad_loss(
+            th_i, th_pos, pos_w, means, counts_f, cl, th_neg,
+            n_noise=cfg.n_noise, n_total=n_total,
+        )
+    g_i, g_pos, g_neg = torch.autograd.grad(loss, (th_i, th_pos, th_neg))
+    d = theta.shape[1]
+    theta.index_put_((rows,), g_i * -lr, accumulate=True)
+    theta.index_put_((pos_rows.reshape(-1),), g_pos.reshape(-1, d) * -lr, accumulate=True)
+    theta.index_put_((neg_rows.reshape(-1),), g_neg.reshape(-1, d) * -lr, accumulate=True)
+    return loss.detach()
+
+
+def run_epoch(theta, idx, cfg: NomadConfig, method: str, steps: int, lr0: float, lr1: float, epoch: int):
+    """Means refreshed every ``cfg.mean_refresh_steps`` (default: once, at
+    the start), lr annealed linearly from lr0 towards lr1 over the epoch.
+    Returns (theta, mean loss as a 0-d tensor)."""
+    refresh = cfg.mean_refresh_steps or steps
+    counts_f = idx["counts"].float()
+    means, step_losses = None, []
+    for t in range(steps):
+        if t % refresh == 0:
+            means = local_means(theta, idx["counts"], cfg.cluster_capacity)
+        lr = lr0 + (lr1 - lr0) * (t / steps)
+        gen = seeded_generator(theta.device, cfg.seed + 1, epoch, t)
+        rows, cl, neg_rows = sample_step_rows(gen, idx, cfg, method)
+        step_losses.append(
+            step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, cfg=cfg, method=method)
+        )
+    return theta, torch.stack(step_losses).mean()
+
+
+# ---------------------------------------------------------------------------
+# The fit
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FitResult:
+    embedding: np.ndarray  # (N, out_dim) in the original point order
+    index: AnnIndex
+    losses: list
+    wall_time_s: float
+    epoch_times: list
+    strategy: str = "local"
+    n_shards: int = 1
+    # "local" (IndexBuilder ran) | "provided" (index= argument)
+    index_build_strategy: str = ""
+    index_build_s: float = 0.0
+    index_build_stragglers: int = 0
+    # wall seconds per stage, synchronised with the device: the build's
+    # kmeans / assign / stragglers / permute / knn, then init and epochs
+    stage_s: dict = dataclasses.field(default_factory=dict)
+    device: str = ""
+
+
+def prepare_inputs(x, dim: Optional[int] = None, caller: str = "fit") -> np.ndarray:
+    """The validation/dtype gate: integer and half inputs are upcast to
+    float32, float64 is rejected, NaN/Inf fail with an actionable error."""
+    x = np.asarray(x)
+    if x.ndim != 2:
+        raise ValueError(f"{caller}: expected a 2-D (n_points, dim) array, got shape {x.shape}")
+    if x.dtype == np.float64:
+        raise ValueError(
+            f"{caller}: x is float64 — the whole pipeline (index build, "
+            "kernels, serving) runs float32; pass x.astype(np.float32) "
+            "explicitly so the precision cut is your call, not a silent one"
+        )
+    if x.dtype != np.float32:
+        x = x.astype(np.float32)
+    if not np.isfinite(x).all():
+        n_bad = int(np.size(x) - np.isfinite(x).sum())
+        raise ValueError(
+            f"{caller}: x contains {n_bad} non-finite values (NaN/Inf) — "
+            "clean or impute before projecting; a single NaN poisons the "
+            "k-means statistics and every distance downstream"
+        )
+    if dim is not None and x.shape[1] != dim:
+        raise ValueError(
+            f"{caller}: x has dim {x.shape[1]} but the fitted map expects "
+            f"dim {dim} — queries must live in the training feature space"
+        )
+    return x
+
+
+class NomadProjection:
+    """The scikit-style front end: ``NomadProjection(cfg).fit(x)``.
+
+    Runs on ``cuda`` unless ``device="cpu"`` is passed; with no card and no
+    device named it raises rather than fall back to the CPU. This slice
+    runs the local strategy on an in-memory array.
+    """
+
+    def __init__(self, cfg: NomadConfig, method: Optional[str] = None, *, device=None):
+        if cfg.strategy not in ("auto", "local"):
+            raise NotImplementedError(f"strategy={cfg.strategy!r}: only the local fit is ported")
+        if cfg.checkpoint_dir:
+            raise NotImplementedError("checkpoint_dir: checkpoint/resume is not ported yet")
+        self.cfg = cfg
+        self.method = method or cfg.method
+        self.device = resolve_device(device)
+        self._fit_result: Optional[FitResult] = None
+
+    def fit(self, x, index: Optional[AnnIndex] = None, *, theta0=None) -> FitResult:
+        """Fit the map. ``index`` (an :class:`AnnIndex`, e.g. loaded from
+        the JAX package's ``index.npz``) skips the build; ``theta0`` (a
+        (K·C, out_dim) array in the index's row layout) replaces the init."""
+        from repro_torch.core.strategy import LocalStrategy
+
+        cfg, device = self.cfg, self.device
+        x = prepare_inputs(x, caller="fit")
+        t0 = time.time()
+        stage_s: dict = {}
+        build_strategy, build_s, stragglers = "provided", 0.0, 0
+        if index is None:
+            builder = IndexBuilder(cfg, device=device)
+            index = builder.build(x)
+            build_strategy, build_s = builder.report.strategy, builder.report.total_s
+            stragglers = builder.report.stragglers
+            stage_s.update(builder.report.stage_s)
+
+        t_init = time.time()
+        if theta0 is None:
+            theta0 = self._init_theta(x, index)
+        strategy = LocalStrategy()
+        theta = strategy.prepare(cfg, self.method, index, theta0, device)
+        synchronize(device)
+        stage_s["init"] = time.time() - t_init
+
+        t_epochs = time.time()
+        lr0 = cfg.resolved_lr0()
+        losses_, epoch_times = [], []
+        for e in range(cfg.n_epochs):
+            te = time.time()
+            f0 = 1.0 - e / cfg.n_epochs
+            f1 = 1.0 - (e + 1) / cfg.n_epochs
+            theta, mloss = strategy.run_epoch(theta, e, lr0 * f0, lr0 * f1)
+            losses_.append(mloss)
+            epoch_times.append(time.time() - te)
+        stage_s["epochs"] = time.time() - t_epochs
+
+        result = FitResult(
+            embedding=index.unpermute(strategy.fetch(theta)),
+            index=index,
+            losses=losses_,
+            wall_time_s=time.time() - t0,
+            epoch_times=epoch_times,
+            index_build_strategy=build_strategy,
+            index_build_s=build_s,
+            index_build_stragglers=stragglers,
+            stage_s=stage_s,
+            device=str(device),
+        )
+        self._fit_result = result
+        return result
+
+    def fit_transform(self, x, **kwargs) -> np.ndarray:
+        """``fit(...)`` and return just the ``(N, out_dim)`` embedding."""
+        return self.fit(x, **kwargs).embedding
+
+    def _init_theta(self, x: np.ndarray, index: AnnIndex) -> np.ndarray:
+        """PCA (or seeded random) init, scattered into the row layout."""
+        cfg = self.cfg
+        if cfg.init == "pca":
+            xd = torch.from_numpy(x).to(self.device)
+            th0 = pca_init(xd, cfg.out_dim, cfg.init_scale).cpu().numpy()
+            del xd
+        else:
+            rng = np.random.default_rng(cfg.seed)
+            th0 = rng.normal(0, cfg.init_scale, (x.shape[0], cfg.out_dim)).astype(np.float32)
+        rows = np.zeros((index.n_clusters * index.capacity, cfg.out_dim), np.float32)
+        rows[index.perm] = th0
+        return rows

@@ -1,0 +1,42 @@
+"""The port stands alone: importing it loads neither JAX nor the JAX
+package, and no source file of it (or chip_smoke.py) imports either."""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_import_loads_no_jax_and_no_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core.nomad, repro_torch.index.build\n"
+        "import repro_torch.core.strategy, repro_torch.kernels.registry\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+
+
+def test_sources_import_no_jax_and_no_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(f) for f in files if _IMPORT.search(f.read_text())]
+    assert not offenders, offenders
