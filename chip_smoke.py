@@ -17,7 +17,15 @@ Phases, each fatal on failure:
    ``reduced``), with every kernel's launch count read around it, the
    loss checked to fall, a bit-equality check of two short reruns, and a
    small fit held to the quality bands of the repo's tests;
-5. the kernel table (the contract line), then the card, then the result.
+5. the serving path: ``MapServer.transform`` of 65,536 new queries on the
+   frozen N = 1M map (64 batches of 1024 at 24 steps), with its launch
+   counts read around it, bit-equal placements at microbatch 512 and
+   1024, training rows that find themselves, and one batch profiled;
+6. a checkpoint round trip at the small fit's size: fit with
+   ``checkpoint_dir``, ``NomadProjection.from_checkpoint(dir).transform``
+   bit-equal to the fitted estimator's, and the same frozen map served on
+   the CPU (plain versions) close to the card's;
+7. the kernel table (the contract line), then the card, then the result.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the repository's ``src/`` is not beside it. Details of every check
@@ -46,11 +54,24 @@ PEAK_BYTES_PER_S = 3.35e12
 MAIN_N = 1_000_000
 MAIN_EPOCHS = 4
 MAIN_COMPONENTS = 4096
+FIT_KERNELS = ("nomad_step_fwd", "nomad_step_bwd", "kmeans_assign", "pairwise")
+SERVE_KERNELS = ("kmeans_assign", "pairwise", "cauchy_mean_fwd", "cauchy_mean_bwd",
+                 "frozen_attract_fwd", "frozen_attract_bwd")
+SERVE_Q = 65_536  # 64 batches of serve_microbatch 1024
+INVARIANCE_Q = 4096  # placed at microbatch 512 and 1024
 REDUCED = [
     "n_points 24,000,000 -> 1,000,000 (one card, one call's time limit)",
     f"n_epochs 60 -> {MAIN_EPOCHS}",
     "data: seeded Gaussian mixture (4096 components at dim 768) in place of PubMed BERT vectors",
 ]
+
+
+def main_config():
+    """PUBMED at its published widths (serving: microbatch 1024, 24 steps),
+    N and epochs cut as REDUCED says."""
+    from repro_torch.configs import PUBMED
+
+    return PUBMED.replace(n_points=MAIN_N, n_epochs=MAIN_EPOCHS)
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -73,6 +94,25 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: its kernels' time under
+    torch.profiler over ``reps`` calls. Unlike :func:`time_ms` it leaves
+    out the host's cost of a launch, which holds a kernel of a few
+    microseconds to the rate the host can enqueue it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / reps
 
 
 def _gen(device, seed):
@@ -150,6 +190,7 @@ def check_nomad_step(device, shapes, main_shape):
     timing = {
         "nomad_step_fwd": {
             "ms": time_ms(lambda: ops.nomad_step_fwd_cuda(*args), reps=50),
+            "device_ms": device_ms(lambda: ops.nomad_step_fwd_cuda(*args)),
             "plain_ms": time_ms(lambda: ops.nomad_step_fwd_plain(*args)),
             "bound": bound_ms(fwd_flops, 4.0 * (in_words + 2 * B)),
             "library_ms": None,
@@ -157,6 +198,7 @@ def check_nomad_step(device, shapes, main_shape):
         },
         "nomad_step_bwd": {
             "ms": time_ms(lambda: ops.nomad_step_bwd_cuda(*args, m, gbar), reps=50),
+            "device_ms": device_ms(lambda: ops.nomad_step_bwd_cuda(*args, m, gbar)),
             "plain_ms": time_ms(lambda: ops.nomad_step_bwd_plain(*args, m, gbar)),
             "bound": bound_ms(bwd_flops, 4.0 * (in_words + 2 * B + B * d + B * k * d + B * S * d)),
             "library_ms": None,
@@ -198,6 +240,7 @@ def check_kmeans_assign(device, shapes, main_shape):
 
     timing = {"kmeans_assign": {
         "ms": time_ms(lambda: ops.assign_nearest_cuda(x, c)),
+        "device_ms": device_ms(lambda: ops.assign_nearest_cuda(x, c)),
         "plain_ms": time_ms(lambda: ops.assign_nearest_plain(x, c)),
         "library_ms": time_ms(library),
         "library_call": "torch.cdist(x, c, compute_mode='use_mm_for_euclid_dist').min(-1) (two calls)",
@@ -240,6 +283,7 @@ def check_pairwise(device, shapes, cand_shape, cell_shape):
         b = batch or 1
         return {
             "ms": time_ms(lambda: ops.pairwise_dist2_cuda(x, y)),
+            "device_ms": device_ms(lambda: ops.pairwise_dist2_cuda(x, y)),
             "plain_ms": time_ms(lambda: ops.pairwise_dist2_plain(x, y)),
             "library_ms": time_ms(lambda: torch.cdist(x, y, compute_mode="use_mm_for_euclid_dist")),
             "library_call": "torch.cdist(x, y, compute_mode='use_mm_for_euclid_dist') (distances, not squared)",
@@ -258,6 +302,119 @@ def check_pairwise(device, shapes, cand_shape, cell_shape):
     return rows, {"pairwise": cand, "pairwise[in-cell batch]": cell}
 
 
+def _check_pair(name, outs, tol, scaled):
+    """Every (kernel, plain) output pair within (rtol, atol); with
+    ``scaled`` atol is tol[1] times the output's largest magnitude (a sum
+    over K = 4096 terms rounds with the summed magnitudes, not the result)."""
+    import torch
+
+    errs, ok = {}, True
+    for label, (g, w) in outs.items():
+        atol = tol[1] * float(w.abs().max()) if scaled else tol[1]
+        errs[label] = _max_err(g, w)
+        ok &= bool(torch.isfinite(g).all()) and _close(g, w, tol[0], atol)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version: {errs}")
+    return errs
+
+
+def check_cauchy_mean(device, shapes, main_shape):
+    """K4 forward and backward against the plain versions at the JAX spec's
+    check shapes, (rtol, atol) = (1e-5, 1e-6), and at the serving shape
+    (B 1024 against K 4096 means) with atol scaled by the largest output."""
+    import torch
+
+    from repro_torch.kernels.cauchy_mean import ops
+
+    def inputs(B, K, d, seed):  # the JAX spec's distribution (ops.py:_make_inputs)
+        g = _gen(device, seed)
+        return (torch.randn(B, d, generator=g, device=device) * 3.0,
+                torch.randn(K, d, generator=g, device=device) * 3.0,
+                torch.rand(K, generator=g, device=device),
+                torch.randint(0, K, (B,), generator=g, device=device, dtype=torch.int32),
+                torch.rand(B, generator=g, device=device))
+
+    rows = []
+    for shape in list(shapes) + [main_shape]:
+        *args, gbar = inputs(*shape, seed=sum(shape))
+        outs = {"s": (ops.cauchy_mean_fwd_cuda(*args), ops.cauchy_mean_fwd_plain(*args)),
+                "g_theta": (ops.cauchy_mean_bwd_cuda(*args, gbar), ops.cauchy_mean_bwd_plain(*args, gbar))}
+        torch.cuda.synchronize()
+        rows.append({"shape": shape, "max_abs_err": _check_pair("cauchy_mean", outs, ops.TOL, shape == main_shape),
+                     "ok": True})
+    B, K, d = main_shape
+    *args, gbar = inputs(B, K, d, seed=3)
+    in_bytes = 4.0 * (B * d + K * d + K + B)
+    timing = {
+        "cauchy_mean_fwd": {
+            "ms": time_ms(lambda: ops.cauchy_mean_fwd_cuda(*args), reps=50),
+            "device_ms": device_ms(lambda: ops.cauchy_mean_fwd_cuda(*args)),
+            "plain_ms": time_ms(lambda: ops.cauchy_mean_fwd_plain(*args)),
+            "bound": bound_ms(B * K * (3.0 * d + 4), in_bytes + 4.0 * B),
+            "library_ms": None,
+            "max_abs_err": max(r["max_abs_err"]["s"] for r in rows),
+        },
+        "cauchy_mean_bwd": {
+            "ms": time_ms(lambda: ops.cauchy_mean_bwd_cuda(*args, gbar), reps=50),
+            "device_ms": device_ms(lambda: ops.cauchy_mean_bwd_cuda(*args, gbar)),
+            "plain_ms": time_ms(lambda: ops.cauchy_mean_bwd_plain(*args, gbar)),
+            "bound": bound_ms(B * K * (5.0 * d + 4), in_bytes + 4.0 * B * (1 + d)),
+            "library_ms": None,
+            "max_abs_err": max(r["max_abs_err"]["g_theta"] for r in rows),
+        },
+    }
+    return rows, timing
+
+
+def check_frozen_attract(device, shapes, main_shape):
+    """K5 forward and backward against the plain versions at the JAX spec's
+    check shapes and the serving shape (B 1024, k 15), (1e-5, 1e-6): each
+    output sums only k = 15 terms."""
+    import torch
+
+    from repro_torch.kernels.frozen_attract import ops
+
+    def inputs(B, k, d, seed):  # the JAX spec's distribution (ops.py:_make_inputs)
+        g = _gen(device, seed)
+        return (torch.randn(B, d, generator=g, device=device) * 3.0,
+                torch.randn(B, k, d, generator=g, device=device) * 3.0,
+                torch.rand(B, k, generator=g, device=device),
+                torch.rand(B, generator=g, device=device) * 5.0,
+                torch.rand(B, generator=g, device=device))
+
+    rows = []
+    for shape in list(shapes) + [main_shape]:
+        *args, gbar = inputs(*shape, seed=sum(shape))
+        (gt, gm), (gt_p, gm_p) = ops.frozen_attract_bwd_cuda(*args, gbar), ops.frozen_attract_bwd_plain(*args, gbar)
+        outs = {"loss": (ops.frozen_attract_fwd_cuda(*args), ops.frozen_attract_fwd_plain(*args)),
+                "g_theta": (gt, gt_p), "g_m": (gm, gm_p)}
+        torch.cuda.synchronize()
+        rows.append({"shape": shape, "max_abs_err": _check_pair("frozen_attract", outs, ops.TOL, False),
+                     "ok": True})
+    B, k, d = main_shape
+    *args, gbar = inputs(B, k, d, seed=4)
+    in_bytes = 4.0 * (B * d + B * k * d + B * k + B)
+    timing = {
+        "frozen_attract_fwd": {
+            "ms": time_ms(lambda: ops.frozen_attract_fwd_cuda(*args), reps=50),
+            "device_ms": device_ms(lambda: ops.frozen_attract_fwd_cuda(*args)),
+            "plain_ms": time_ms(lambda: ops.frozen_attract_fwd_plain(*args)),
+            "bound": bound_ms(B * k * (3.0 * d + 12), in_bytes + 4.0 * B),
+            "library_ms": None,
+            "max_abs_err": max(r["max_abs_err"]["loss"] for r in rows),
+        },
+        "frozen_attract_bwd": {
+            "ms": time_ms(lambda: ops.frozen_attract_bwd_cuda(*args, gbar), reps=50),
+            "device_ms": device_ms(lambda: ops.frozen_attract_bwd_cuda(*args, gbar)),
+            "plain_ms": time_ms(lambda: ops.frozen_attract_bwd_plain(*args, gbar)),
+            "bound": bound_ms(B * k * (5.0 * d + 9), in_bytes + 4.0 * B * (2 + d)),
+            "library_ms": None,
+            "max_abs_err": max(max(r["max_abs_err"]["g_theta"], r["max_abs_err"]["g_m"]) for r in rows),
+        },
+    }
+    return rows, timing
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -266,12 +423,11 @@ def check_pairwise(device, shapes, cand_shape, cell_shape):
 def main_path(device):
     import torch
 
-    from repro_torch.configs import PUBMED
     from repro_torch.core.nomad import NomadProjection
     from repro_torch.data.synthetic import gaussian_mixture
     from repro_torch.kernels import registry
 
-    cfg = PUBMED.replace(n_points=MAIN_N, n_epochs=MAIN_EPOCHS)
+    cfg = main_config()
     t0 = time.time()
     x, _labels = gaussian_mixture(MAIN_N, cfg.dim, n_components=MAIN_COMPONENTS, seed=0)
     data_s = time.time() - t0
@@ -289,7 +445,7 @@ def main_path(device):
         raise AssertionError(f"embedding not finite of shape {(MAIN_N, cfg.out_dim)}: {emb.shape}")
     if not res.losses[-1] < res.losses[0]:
         raise AssertionError(f"loss did not fall: {res.losses}")
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in FIT_KERNELS if launches[n] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
 
@@ -319,7 +475,7 @@ def main_path(device):
         "rerun_bit_equal": True,
         "epoch_profile": profile,
         "quality": quality,
-    }
+    }, x, res
 
 
 def _knn_on_card(a, q_idx, k, device, chunk=256):
@@ -426,8 +582,193 @@ def small_quality(device):
 
 
 # ---------------------------------------------------------------------------
+# Phases 5 and 6: serving and the checkpoint round trip
+# ---------------------------------------------------------------------------
 
 
+def mixture_queries(n, dim, n_components, seed, fit_seed=0, spread=0.15):
+    """New rows of the fit's mixture: the centres ``gaussian_mixture`` drew
+    from ``fit_seed``, fresh labels and noise from ``seed``."""
+    rng = np.random.default_rng(fit_seed)
+    centers = rng.normal(0, 1, (n_components, dim))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_components, n)
+    return (centers[labels] + rng.normal(0, spread / np.sqrt(dim), (n, dim))).astype(np.float32)
+
+
+def batch_profile(device, server, q):
+    """One serving batch: its wall time unprofiled, then under
+    torch.profiler the device time of every kernel it ran. busy_share =
+    device time / unprofiled wall (one stream)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    B = server.batch_rows
+    args = (q[:B], np.arange(B), np.zeros(B, np.int64), np.ones(B, bool))
+    server.transform_batch(*args)  # warm
+    torch.cuda.synchronize()
+    t0 = time.time()
+    server.transform_batch(*args)
+    wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server.transform_batch(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "rows": B,
+        "steps": server.steps,
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms if busy_ms > 0 else None,
+        "busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
+        "device_launches": sum(e.count for e in kernels),
+        "top_kernels_ms": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in top],
+    }
+
+
+def serve_path(device, cfg, res, x):
+    """``MapServer.transform`` of SERVE_Q new queries on the frozen main-path
+    map, at serve_microbatch 1024 and transform_steps 24, with the serving
+    kernels' launch counts read around it; then microbatch invariance,
+    training rows as queries, and one batch profiled."""
+    import torch
+
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.pairwise.ops import allowed_error
+    from repro_torch.serve import FrozenMap, MapServer
+
+    t0 = time.time()
+    fz = FrozenMap.from_fit(res, cfg, device=device)
+    torch.cuda.synchronize()
+    freeze_s = time.time() - t0
+    q = mixture_queries(SERVE_Q, cfg.dim, MAIN_COMPONENTS, seed=1)
+    server = MapServer(fz)
+    torch.cuda.reset_peak_memory_stats(device)
+    registry.reset_launch_counts()
+    r = server.transform(q, seed=0)
+    launches = registry.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    if r.embedding.shape != (SERVE_Q, cfg.out_dim) or not np.isfinite(r.embedding).all():
+        raise AssertionError(f"placements not finite of shape {(SERVE_Q, cfg.out_dim)}")
+    missing = [n for n in SERVE_KERNELS if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the serving path: {missing}")
+
+    # microbatch invariance: the first queries at 512 and at 1024 rows a batch
+    half = MapServer(fz, microbatch=512).transform(q[:INVARIANCE_Q], seed=0)
+    if not np.array_equal(half.embedding, r.embedding[:INVARIANCE_Q]):
+        bad = int(np.sum(np.any(half.embedding != r.embedding[:INVARIANCE_Q], axis=1)))
+        raise AssertionError(f"placements differ between microbatch 512 and 1024 ({bad} rows)")
+
+    # training rows as queries (tests/test_serve.py's criterion) — among the
+    # first rows, those the capacity bound left in their nearest cell (a row
+    # moved to another cell cannot find itself in its nearest one)
+    cand = np.arange(400)
+    rc = server.transform(x[cand], seed=0)
+    home = res.index.perm[cand] // res.index.capacity
+    take = cand[rc.cells == home][:50]
+    if take.size < 50:
+        raise AssertionError(f"only {take.size} of 400 rows sit in their nearest cell")
+    rs = server.transform(x[take], seed=0)
+    # self at distance ~0: K3 takes ‖q‖² + ‖x‖² − 2q·x in fp32, whose rounding
+    # at D = 768 is of the order of its stated bound, not of the 1e-3 that
+    # tests/test_serve.py holds at D = 16
+    xt = torch.from_numpy(x[take])
+    self_tol = np.sqrt(allowed_error(xt, xt).diagonal().numpy())
+    found = rs.neighbor_ids[:, 0] == take
+    near = rs.neighbor_dists[:, 0] <= self_tol
+    if not (found.all() and near.all()):
+        raise AssertionError(
+            f"training rows sent as queries: {int(found.sum())}/{take.size} find themselves "
+            f"first, {int(near.sum())} within K3's bound; max distance "
+            f"{float(rs.neighbor_dists[:, 0].max())} against {float(self_tol.min())}"
+        )
+    r0 = MapServer(fz, steps=0).transform(x[take], seed=0)
+    gap = np.linalg.norm(r0.embedding - res.embedding[take], axis=1)
+    radius = np.array([np.linalg.norm(res.embedding[ids[ids >= 0]] - res.embedding[i], axis=1).max()
+                       for i, ids in zip(take, r0.neighbor_ids)])
+    if not (gap <= radius + 1e-12).all():
+        raise AssertionError("steps=0 placements of training rows leave their neighbour radius")
+
+    profile = batch_profile(device, server, q)
+    return {
+        "queries": SERVE_Q,
+        "microbatch": server.microbatch,
+        "steps": server.steps,
+        "freeze_s": freeze_s,
+        "wall_s": r.wall_time_s,
+        "queries_per_s": SERVE_Q / r.wall_time_s,
+        "p50_batch_s": r.p50_latency_s,
+        "p99_batch_s": r.p99_latency_s,
+        "first_batch_loss": r.batch_loss[0],
+        "last_batch_loss": r.batch_loss[-1],
+        "peak_device_gb": peak_gb,
+        "launches": launches,
+        "microbatch_512_equals_1024": True,
+        "self_rows_checked": int(take.size),
+        "self_max_dist": float(rs.neighbor_dists[:, 0].max()),
+        "self_dist_bound_min": float(self_tol.min()),
+        "self_rows_candidates_in_nearest_cell": int(np.sum(rc.cells == home)),
+        "batch_profile": profile,
+    }
+
+
+def checkpoint_roundtrip(device):
+    """The small fit (5000×32) with checkpoint_dir under chiprun_out/; then
+    ``NomadProjection.from_checkpoint(dir).transform`` must be bit-equal to
+    the fitted estimator's on the card, and the same checkpoint served on
+    the CPU (the kernels' plain versions, the same per-row draws) must give
+    the same cells, the same neighbour ids for at least 99% of the queries,
+    and on those rows placements within 1e-3 × max(1, max |θ|): the two
+    devices sum in other orders, and a swapped near-tie of two neighbours
+    changes their rank weights."""
+    import shutil
+
+    from repro_torch.configs import NomadConfig
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    ckdir = os.path.join(OUT_DIR, "ckpt_small")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    cfg = NomadConfig(n_points=5000, dim=32, n_clusters=8, n_neighbors=15, n_noise=32,
+                      n_exact_negatives=8, batch_size=512, n_epochs=25, checkpoint_dir=ckdir)
+    x, _ = gaussian_mixture(5000, 32, n_components=8, seed=0)
+    q, _ = gaussian_mixture(2000, 32, n_components=8, seed=5)
+    est = NomadProjection(cfg, device=device)
+    fit = est.fit(x)
+    a = est.map_server().transform(q, seed=0)
+    b = NomadProjection.from_checkpoint(ckdir, device=device).map_server().transform(q, seed=0)
+    for f in ("embedding", "cells", "neighbor_ids", "neighbor_dists"):
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"from_checkpoint transform differs from the fitted one in {f}")
+    c = NomadProjection.from_checkpoint(ckdir, device="cpu").map_server().transform(q, seed=0)
+    same_ids = np.all(a.neighbor_ids == c.neighbor_ids, axis=1)
+    scale = max(1.0, float(np.abs(a.embedding).max()))
+    err = float(np.abs(a.embedding[same_ids] - c.embedding[same_ids]).max())
+    if not (np.array_equal(a.cells, c.cells) and same_ids.mean() >= 0.99 and err <= 1e-3 * scale):
+        raise AssertionError(f"card vs CPU: cells equal {np.array_equal(a.cells, c.cells)}, "
+                             f"ids equal on {same_ids.mean():.4f}, max |Δθ| {err} (scale {scale})")
+    return {
+        "checkpoint": "small fit (5000×32, K 8): the full-width 3.8 GB x_rows cache is not written",
+        "checkpoint_epochs": fit.checkpoint_epochs,
+        "from_checkpoint_bit_equal": True,
+        "cpu_cells_equal": True,
+        "cpu_ids_equal_frac": float(same_ids.mean()),
+        "cpu_max_abs_diff": err,
+        "embedding_scale": scale,
+    }
+
+
+# ---------------------------------------------------------------------------
+
+
+CAUCHY_SHAPES = [(512, 1024, 2), (100, 64, 2), (64, 100, 3), (777, 333, 2)]  # the JAX spec's
+CAUCHY_SERVE = (1024, 4096, 2)  # serve_microbatch queries against K means
+ATTRACT_SHAPES = [(512, 15, 2), (64, 8, 2), (100, 5, 3), (777, 15, 2)]  # the JAX spec's
+ATTRACT_SERVE = (1024, 15, 2)
 NOMAD_SHAPES = [(512, 15, 16, 64, 2), (100, 5, 4, 33, 2), (64, 3, 8, 100, 3), (777, 15, 16, 130, 2)]
 NOMAD_MAIN = (8192, 15, 16, 4096, 2)
 KMEANS_SHAPES = [(512, 256, 64), (1000, 17, 32), (64, 512, 128), (513, 255, 48)]
@@ -441,10 +782,10 @@ TPU_KERNELS = [
     ("K1b nomad_step_bwd", "src/repro/kernels/nomad_step/nomad_step.py:201", "nomad_step_bwd"),
     ("K2 kmeans_assign", "src/repro/kernels/kmeans_assign/kmeans_assign.py:53", "kmeans_assign"),
     ("K3 pairwise", "src/repro/kernels/pairwise/pairwise.py:59", "pairwise"),
-    ("K4f cauchy_mean_fwd", "src/repro/kernels/cauchy_mean/cauchy_mean.py:83", None),
-    ("K4b cauchy_mean_bwd", "src/repro/kernels/cauchy_mean/cauchy_mean.py:104", None),
-    ("K5f frozen_attract_fwd", "src/repro/kernels/frozen_attract/frozen_attract.py:71", None),
-    ("K5b frozen_attract_bwd", "src/repro/kernels/frozen_attract/frozen_attract.py:92", None),
+    ("K4f cauchy_mean_fwd", "src/repro/kernels/cauchy_mean/cauchy_mean.py:83", "cauchy_mean_fwd"),
+    ("K4b cauchy_mean_bwd", "src/repro/kernels/cauchy_mean/cauchy_mean.py:104", "cauchy_mean_bwd"),
+    ("K5f frozen_attract_fwd", "src/repro/kernels/frozen_attract/frozen_attract.py:71", "frozen_attract_fwd"),
+    ("K5b frozen_attract_bwd", "src/repro/kernels/frozen_attract/frozen_attract.py:92", "frozen_attract_bwd"),
 ]
 
 
@@ -471,6 +812,8 @@ def kernel_phases(device):
         ("nomad_step", check_nomad_step, (NOMAD_SHAPES, NOMAD_MAIN)),
         ("kmeans_assign", check_kmeans_assign, (KMEANS_SHAPES, KMEANS_MAIN)),
         ("pairwise", check_pairwise, (PAIRWISE_SHAPES, PAIRWISE_CAND, PAIRWISE_CELL)),
+        ("cauchy_mean", check_cauchy_mean, (CAUCHY_SHAPES, CAUCHY_SERVE)),
+        ("frozen_attract", check_frozen_attract, (ATTRACT_SHAPES, ATTRACT_SERVE)),
     ):
         rows, t = fn(device, *args)
         checks[name] = rows
@@ -495,18 +838,29 @@ def main() -> int:
 
     build_s, checks, timing = kernel_phases(device)
 
-    main_res = main_path(device)
+    main_res, x, fit = main_path(device)
     print(json.dumps({"main_path": main_res}), flush=True)
     quality = small_quality(device)
     print(json.dumps({"small_quality": quality}), flush=True)
+    serve = serve_path(device, main_config(), fit, x)
+    del x, fit
+    print(json.dumps({"serve_path": serve}), flush=True)
+    ckpt = checkpoint_roundtrip(device)
+    print(json.dumps({"checkpoint_roundtrip": ckpt}), flush=True)
 
     kernels = []
-    for name in ("nomad_step_fwd", "nomad_step_bwd", "kmeans_assign", "pairwise"):
+    for name in FIT_KERNELS + SERVE_KERNELS[2:]:
         k, t = registry.get(name), timing[name]
+        fit_n, serve_n = main_res["launches"][name], serve["launches"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": main_res["launches"][name], "max_abs_err": t["max_abs_err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            # the count of the path that runs the kernel: the fit for K1-K3,
+            # serving for K4/K5; both paths' counts beside it
+            "launches": fit_n if name in FIT_KERNELS else serve_n,
+            "launches_by_path": {"fit": fit_n, "serve": serve_n},
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "library_call": t.get("library_call"),
         })
@@ -515,8 +869,8 @@ def main() -> int:
               and port.removesuffix("_fwd").removesuffix("_bwd") in checks}
              for label, where, port in TPU_KERNELS]
     record = {"card": card, "build_s": build_s, "checks": checks, "timing": timing,
-              "main_path": main_res, "small_quality": quality, "tpu_kernels": table,
-              "kernels": kernels}
+              "main_path": main_res, "small_quality": quality, "serve_path": serve,
+              "checkpoint_roundtrip": ckpt, "tpu_kernels": table, "kernels": kernels}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     print(json.dumps({"tpu_kernels": table}))

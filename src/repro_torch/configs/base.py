@@ -6,16 +6,24 @@ device a tensor lives on, never by a flag. ``dataclasses.asdict`` of this
 config is therefore accepted by the JAX config's constructor, which is how
 the tests build both frameworks from one set of values.
 
-This slice runs the local, in-memory fit: ``strategy`` "auto"/"local",
-``build_strategy`` "auto"/"local" and ``chunk_rows == 0``. The other
-fields are kept so later slices (serving, streaming, multi-GPU) read the
-same configuration; the entry points raise for values they do not run yet.
+The port runs the local, in-memory fit (``strategy`` "auto"/"local",
+``build_strategy`` "auto"/"local", ``chunk_rows == 0``), its checkpoints
+(``checkpoint_dir``, ``checkpoint_every_epochs``) and local serving
+(``serve_strategy`` "auto"/"local" and the other serve fields). The
+remaining fields are kept so later slices (streaming, multi-GPU, the
+service layer, incremental maps) read the same configuration; the entry
+points raise for values they do not run yet. :meth:`NomadConfig.from_stored`
+reads a config a checkpoint stored, the JAX package's included.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+
+# fields of the JAX package's config that the port deliberately lacks
+JAX_ONLY_FIELDS = ("kernel_impl", "use_pallas")
 
 
 @dataclass(frozen=True)
@@ -69,7 +77,7 @@ class NomadConfig:
     hierarchical: bool = False
     n_cluster_groups: int = 0
 
-    # out-of-sample serving (not ported yet)
+    # out-of-sample serving (repro_torch.serve; "sharded" not ported yet)
     serve_strategy: str = "auto"
     serve_microbatch: int = 1024
     serve_knn_block: int = 256
@@ -83,7 +91,7 @@ class NomadConfig:
     # incremental growth (not ported yet)
     partial_refine_epochs: int = 3
 
-    # fault tolerance (not ported yet: checkpoint_dir must stay "")
+    # fault tolerance (repro_torch.checkpoint)
     checkpoint_every_epochs: int = 5
     checkpoint_dir: str = ""
 
@@ -137,6 +145,16 @@ class NomadConfig:
     def resolved_lr0(self) -> float:
         return self.lr0 if self.lr0 > 0 else self.n_points / 10.0
 
+    def resolved_transform_lr(self) -> float:
+        """Per-row serve lr. Fit's mean-of-batch update gives each touched
+        row an effective step of lr/batch_size, and by the last epoch the
+        linear anneal has scaled lr down by ~1/n_epochs — the regime the
+        frozen equilibrium was reached in, so that is where a new point's
+        refinement starts (the serve steps anneal it further to 0)."""
+        if self.transform_lr > 0:
+            return self.transform_lr
+        return self.resolved_lr0() / self.batch_size / max(self.n_epochs, 1)
+
     def resolved_steps_per_epoch(self) -> int:
         if self.steps_per_epoch:
             return self.steps_per_epoch
@@ -149,3 +167,12 @@ class NomadConfig:
 
     def replace(self, **kw) -> "NomadConfig":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_stored(cls, stored: dict, **overrides) -> "NomadConfig":
+        """The config a checkpoint stored (``dataclasses.asdict`` of either
+        package's config), with ``overrides`` applied. The JAX package's
+        kernel-impl switches are dropped: the port has no such fields."""
+        fields = {k: v for k, v in dict(stored).items() if k not in JAX_ONLY_FIELDS}
+        fields.update(overrides)
+        return cls(**fields)

@@ -8,8 +8,9 @@
 The training step runs the whole per-head NOMAD loss as one fused kernel
 (``nomad_step``, :func:`nomad_step_term`): the CUDA kernel pair on the
 card, its plain PyTorch version on the CPU, picked by the tensors' device.
-:func:`contrastive_loss` is the unfused composition the InfoNC baseline
-and the tests use.
+The serving step takes M̃ alone from the ``cauchy_mean`` kernel
+(:func:`nomad_mean_term`). :func:`contrastive_loss` is the unfused
+composition the InfoNC baseline and the tests use.
 """
 
 from __future__ import annotations
@@ -19,7 +20,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core.cauchy import cauchy
+from repro_torch.kernels.cauchy_mean.ops import cauchy_weighted_sum
 from repro_torch.kernels.nomad_step.ops import nomad_step_fused
+
+
+def nomad_mean_term(theta_i, means, cell_w, own_cell):
+    """M̃ (B,) = Σ_r cell_w[r]·[r ≠ own_cell[b]]·q(θ_b, μ_r), with
+    cell_w = |M|·p(m∈r); the gradient flows to θ_i only."""
+    return cauchy_weighted_sum(theta_i, means, cell_w, own_cell)
 
 
 def nomad_step_term(theta_i, theta_pos, pos_w, theta_neg, neg_w, means, cell_w, own_cell):

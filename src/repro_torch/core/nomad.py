@@ -10,14 +10,23 @@ uniform over points; |M| = n_noise. Sampling (:func:`sample_step_rows`) is
 kept apart from the update (:func:`step_update`), so a test can hand both
 frameworks the same rows. Random numbers come from ``torch.Generator``s
 seeded from (seed, epoch, step) in place of ``jax.random.fold_in`` keys, so
-a fit repeats bit for bit on one device but draws other rows than the JAX
-package does.
+a fit repeats bit for bit on one device (and a resumed fit equals the
+uninterrupted one) but draws other rows than the JAX package does.
+
+Fault tolerance and serving: with ``cfg.checkpoint_dir`` set the fit caches
+its index there (``index.npz``) and writes θ every
+``checkpoint_every_epochs`` epochs in the JAX package's checkpoint format;
+``fit(resume=True)`` and :meth:`NomadProjection.from_checkpoint` continue
+from the latest one, and :meth:`NomadProjection.transform` serves the map
+(``repro_torch.serve``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -26,7 +35,7 @@ import torch
 from repro_torch.configs.base import NomadConfig
 from repro_torch.core import losses
 from repro_torch.core.pca import pca_init
-from repro_torch.index.ann import AnnIndex
+from repro_torch.index.ann import AnnIndex, data_fingerprint, index_cache_path, load_index, save_index
 from repro_torch.index.build import IndexBuilder, resolve_device, seeded_generator, synchronize
 
 # ---------------------------------------------------------------------------
@@ -147,6 +156,30 @@ class FitResult:
     # kmeans / assign / stragglers / permute / knn, then init and epochs
     stage_s: dict = dataclasses.field(default_factory=dict)
     device: str = ""
+    # fault tolerance: the first epoch this call ran, whether θ came from a
+    # checkpoint, and the epochs checkpointed
+    start_epoch: int = 0
+    resumed: bool = False
+    checkpoint_dir: str = ""
+    checkpoint_epochs: list = dataclasses.field(default_factory=list)
+
+
+def _config_digest(cfg: NomadConfig) -> dict:
+    """The config fields a checkpoint must agree on to resume bit-exactly."""
+    d = dataclasses.asdict(cfg)
+    for transient in (
+        "checkpoint_dir",
+        "checkpoint_every_epochs",
+        # serve-side knobs never change what a fit computes
+        "serve_strategy",
+        "serve_microbatch",
+        "serve_knn_block",
+        "transform_steps",
+        "transform_lr",
+        "partial_refine_epochs",
+    ):
+        d.pop(transient, None)
+    return d
 
 
 def prepare_inputs(x, dim: Optional[int] = None, caller: str = "fit") -> np.ndarray:
@@ -179,42 +212,118 @@ def prepare_inputs(x, dim: Optional[int] = None, caller: str = "fit") -> np.ndar
 
 
 class NomadProjection:
-    """The scikit-style front end: ``NomadProjection(cfg).fit(x)``.
+    """The scikit-style front end: ``NomadProjection(cfg).fit(x)``, then
+    ``transform(q)``.
 
     Runs on ``cuda`` unless ``device="cpu"`` is passed; with no card and no
-    device named it raises rather than fall back to the CPU. This slice
-    runs the local strategy on an in-memory array.
+    device named it raises rather than fall back to the CPU. The port runs
+    the local strategy on an in-memory array. With ``cfg.checkpoint_dir``
+    set, ``from_checkpoint(dir).transform(q)`` serves the map without the
+    training array.
     """
 
     def __init__(self, cfg: NomadConfig, method: Optional[str] = None, *, device=None):
         if cfg.strategy not in ("auto", "local"):
             raise NotImplementedError(f"strategy={cfg.strategy!r}: only the local fit is ported")
-        if cfg.checkpoint_dir:
-            raise NotImplementedError("checkpoint_dir: checkpoint/resume is not ported yet")
         self.cfg = cfg
         self.method = method or cfg.method
         self.device = resolve_device(device)
+        self._resume_default = False
         self._fit_result: Optional[FitResult] = None
+        self._frozen = None
+        self._server = None
 
-    def fit(self, x, index: Optional[AnnIndex] = None, *, theta0=None) -> FitResult:
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str, cfg: Optional[NomadConfig] = None, *,
+                        device=None, **overrides) -> "NomadProjection":
+        """The estimator a checkpoint directory was written by (the port's
+        or the JAX package's). It resumes by default: ``.fit(x)`` restores
+        the latest θ and epoch and continues to ``cfg.n_epochs``; with no
+        fit, ``transform`` serves the checkpointed map. Field ``overrides``
+        (or a full ``cfg``) alter the continuation."""
+        from repro_torch.checkpoint import load_metadata
+
+        meta = load_metadata(checkpoint_dir)
+        if cfg is None:
+            if "config" not in meta:
+                raise ValueError(
+                    f"checkpoint under {checkpoint_dir} has no stored config: "
+                    "pass cfg= to resume it"
+                )
+            cfg = NomadConfig.from_stored(meta["config"], checkpoint_dir=checkpoint_dir, **overrides)
+        est = cls(cfg, method=meta.get("method"), device=device)
+        est._resume_default = True
+        return est
+
+    def fit(self, x, index: Optional[AnnIndex] = None, *, resume: Optional[bool] = None,
+            theta0=None) -> FitResult:
         """Fit the map. ``index`` (an :class:`AnnIndex`, e.g. loaded from
         the JAX package's ``index.npz``) skips the build; ``theta0`` (a
-        (K·C, out_dim) array in the index's row layout) replaces the init."""
+        (K·C, out_dim) array in the index's row layout) replaces the init;
+        ``resume=True`` continues from the latest checkpoint under
+        ``cfg.checkpoint_dir``."""
+        from repro_torch.checkpoint import Checkpointer, latest_step
         from repro_torch.core.strategy import LocalStrategy
 
         cfg, device = self.cfg, self.device
         x = prepare_inputs(x, caller="fit")
         t0 = time.time()
+        resume = self._resume_default if resume is None else resume
+        ckdir = cfg.checkpoint_dir
+        if resume and not ckdir:
+            raise ValueError("resume=True needs cfg.checkpoint_dir to be set")
         stage_s: dict = {}
+
+        # ---- index: argument > on-disk cache > fresh build ----------------
+        index_cache = index_cache_path(ckdir) if ckdir else ""
+        cache_stale = False
         build_strategy, build_s, stragglers = "provided", 0.0, 0
+        if index is None and index_cache and os.path.exists(index_cache):
+            cached = load_index(index_cache)
+            # a cache left by another dataset must not replace the caller's
+            # data, neither by shape nor, at the same shape, by content
+            if cached.n_points != x.shape[0] or cached.x_rows.shape[1] != x.shape[1]:
+                cache_stale = True
+                warnings.warn(
+                    f"ignoring index cache {index_cache}: built for "
+                    f"({cached.n_points}, {cached.x_rows.shape[1]}) data, got {x.shape} — rebuilding"
+                )
+            elif cached.fingerprint and cached.fingerprint != data_fingerprint(x):
+                cache_stale = True
+                warnings.warn(
+                    f"ignoring index cache {index_cache}: same shape but different "
+                    "data content (fingerprint mismatch) — rebuilding"
+                )
+            else:
+                index, build_strategy = cached, "cache"
         if index is None:
             builder = IndexBuilder(cfg, device=device)
             index = builder.build(x)
             build_strategy, build_s = builder.report.strategy, builder.report.total_s
             stragglers = builder.report.stragglers
             stage_s.update(builder.report.stage_s)
+        if index_cache and (cache_stale or not os.path.exists(index_cache)):
+            os.makedirs(ckdir, exist_ok=True)
+            save_index(index, index_cache)
 
+        # ---- θ: checkpoint > warm start > fresh init ----------------------
         t_init = time.time()
+        start_epoch, resumed = 0, False
+        if resume and latest_step(ckdir) is not None:
+            tree, meta = Checkpointer(ckdir).restore({"theta": None})
+            theta0 = tree["theta"]
+            want = (index.n_clusters * index.capacity, cfg.out_dim)
+            if theta0.shape != want:
+                raise ValueError(f"checkpointed θ {theta0.shape} does not match the index layout {want}")
+            start_epoch, resumed = int(meta["epoch"]) + 1, True
+            stored = meta.get("config")
+            digest = _config_digest(cfg)
+            if stored is not None and {k: v for k, v in stored.items() if k in digest} != digest:
+                warnings.warn(
+                    "resuming with a config that differs from the one the checkpoint "
+                    "was written with: the continued run will not match an "
+                    "uninterrupted one"
+                )
         if theta0 is None:
             theta0 = self._init_theta(x, index)
         strategy = LocalStrategy()
@@ -222,16 +331,32 @@ class NomadProjection:
         synchronize(device)
         stage_s["init"] = time.time() - t_init
 
+        ckpt = Checkpointer(ckdir) if ckdir else None
+        every = max(1, cfg.checkpoint_every_epochs)
         t_epochs = time.time()
         lr0 = cfg.resolved_lr0()
-        losses_, epoch_times = [], []
-        for e in range(cfg.n_epochs):
+        losses_, epoch_times, checkpoint_epochs = [], [], []
+        for e in range(start_epoch, cfg.n_epochs):
             te = time.time()
             f0 = 1.0 - e / cfg.n_epochs
             f1 = 1.0 - (e + 1) / cfg.n_epochs
             theta, mloss = strategy.run_epoch(theta, e, lr0 * f0, lr0 * f1)
             losses_.append(mloss)
             epoch_times.append(time.time() - te)
+            if ckpt is not None and ((e + 1) % every == 0 or e == cfg.n_epochs - 1):
+                ckpt.save(
+                    e,
+                    {"theta": strategy.fetch(theta)},
+                    sharded_keys=("theta",),
+                    metadata={
+                        "epoch": e,
+                        "config": dataclasses.asdict(cfg),
+                        "method": self.method,
+                        "strategy": "local",
+                        "losses": list(losses_),
+                    },
+                )
+                checkpoint_epochs.append(e)
         stage_s["epochs"] = time.time() - t_epochs
 
         result = FitResult(
@@ -245,13 +370,56 @@ class NomadProjection:
             index_build_stragglers=stragglers,
             stage_s=stage_s,
             device=str(device),
+            start_epoch=start_epoch,
+            resumed=resumed,
+            checkpoint_dir=ckdir,
+            checkpoint_epochs=checkpoint_epochs,
         )
         self._fit_result = result
+        self._frozen = None  # a refit invalidates any frozen state
+        self._server = None
         return result
 
     def fit_transform(self, x, **kwargs) -> np.ndarray:
         """``fit(...)`` and return just the ``(N, out_dim)`` embedding."""
         return self.fit(x, **kwargs).embedding
+
+    # -- out-of-sample serving (repro_torch.serve) ---------------------------
+
+    def map_server(self, **overrides):
+        """The :class:`repro_torch.serve.MapServer` this estimator serves
+        from, on its device. The frozen map comes from the last ``fit`` in
+        this process, else from ``cfg.checkpoint_dir`` (θ and the cached
+        index: no training data needed). The default server is cached;
+        ``overrides`` (``strategy=``, ``microbatch=``, ``steps=``, ``lr=``)
+        give a fresh, uncached one, so a one-off override never changes what
+        ``transform()`` does later."""
+        from repro_torch.checkpoint import latest_step
+        from repro_torch.serve import FrozenMap, MapServer
+
+        if self._server is not None and not overrides:
+            return self._server
+        if self._frozen is None:
+            if self._fit_result is not None:
+                self._frozen = FrozenMap.from_fit(self._fit_result, self.cfg, device=self.device)
+            elif self.cfg.checkpoint_dir and latest_step(self.cfg.checkpoint_dir) is not None:
+                self._frozen = FrozenMap.from_checkpoint(self.cfg.checkpoint_dir, self.cfg, device=self.device)
+            else:
+                raise RuntimeError(
+                    "transform needs a fitted map: call fit(x) first, or load one "
+                    "with NomadProjection.from_checkpoint(dir)"
+                )
+        if overrides:
+            return MapServer(self._frozen, **overrides)
+        self._server = MapServer(self._frozen)
+        return self._server
+
+    def transform(self, x, *, seed: int = 0) -> np.ndarray:
+        """Place unseen rows on the frozen fitted map: the (n_queries,
+        out_dim) placements. ``map_server().transform(x)`` returns the full
+        :class:`repro_torch.serve.TransformResult` (cells, neighbour ids and
+        distances, per-batch latency). Never moves the fitted positions."""
+        return self.map_server().transform(x, seed=seed).embedding
 
     def _init_theta(self, x: np.ndarray, index: AnnIndex) -> np.ndarray:
         """PCA (or seeded random) init, scattered into the row layout."""

@@ -20,31 +20,13 @@
 // not. Every head writes only its own gradient slots: no atomics; the
 // scatter into theta happens outside the kernel. Shapes need no padding:
 // heads past B and means past K are bounds-checked.
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "means_tile.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int KT = 2048;  // means per shared-memory tile
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Stage means [r0, r0 + nr) as mu_s[dd * kt + r] and their weights.
-template <int D>
-__device__ __forceinline__ void stage_means(const float* __restrict__ mu,
-                                            const float* __restrict__ cw, float* mu_s,
-                                            float* cw_s, int kt, int r0, int nr) {
-  for (int i = threadIdx.x; i < nr; i += blockDim.x) {
-#pragma unroll
-    for (int dd = 0; dd < D; ++dd) mu_s[dd * kt + i] = mu[(long long)(r0 + i) * D + dd];
-    cw_s[i] = cw[r0 + i];
-  }
-}
+using namespace meanstile;
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
@@ -221,8 +203,7 @@ void launch_fwd(const float* th, const float* pos, const float* pw, const float*
                 const float* nw, const float* mu, const float* cw, const int* own,
                 float* loss, float* m, int B, int k, int S, int K, cudaStream_t s) {
   const int kt = K < KT ? K : KT;
-  const size_t smem = sizeof(float) * (size_t)(D + 1) * kt;
-  nomad_fwd_kernel<D><<<(B + WARPS - 1) / WARPS, THREADS, smem, s>>>(
+  nomad_fwd_kernel<D><<<(B + WARPS - 1) / WARPS, THREADS, smem_bytes<D>(K), s>>>(
       th, pos, pw, neg, nw, mu, cw, own, loss, m, B, k, S, K, kt);
 }
 
@@ -232,8 +213,7 @@ void launch_bwd(const float* th, const float* pos, const float* pw, const float*
                 const float* m, const float* gbar, float* gi, float* gpos, float* gneg,
                 int B, int k, int S, int K, cudaStream_t s) {
   const int kt = K < KT ? K : KT;
-  const size_t smem = sizeof(float) * (size_t)(D + 1) * kt;
-  nomad_bwd_kernel<D><<<(B + WARPS - 1) / WARPS, THREADS, smem, s>>>(
+  nomad_bwd_kernel<D><<<(B + WARPS - 1) / WARPS, THREADS, smem_bytes<D>(K), s>>>(
       th, pos, pw, neg, nw, mu, cw, own, m, gbar, gi, gpos, gneg, B, k, S, K, kt);
 }
 

@@ -82,6 +82,12 @@ def data_fingerprint(x: np.ndarray, n_sample: int = 64, block_rows: int = 65536)
     return h.hexdigest()[:16]
 
 
+def index_cache_path(checkpoint_dir: str) -> str:
+    """Where a fit caches its index beside the checkpoints (one convention,
+    the JAX package's)."""
+    return os.path.join(checkpoint_dir, "index.npz")
+
+
 def save_index(index: AnnIndex, path: str) -> None:
     """Persist an index as one ``.npz`` in the JAX package's layout."""
     np.savez(

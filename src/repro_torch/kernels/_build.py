@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("pairwise", "kmeans_assign", "nomad_step")
+SOURCES = ("pairwise", "kmeans_assign", "nomad_step", "cauchy_mean", "frozen_attract")
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of the entry points (every pointer and the stream as void*)
@@ -40,6 +40,14 @@ SIGNATURES = {
     "nomad_step": {
         "nomad_step_fwd_f32": [_V] * 10 + [_I] * 5 + [_V],
         "nomad_step_bwd_f32": [_V] * 13 + [_I] * 5 + [_V],
+    },
+    "cauchy_mean": {
+        "cauchy_mean_fwd_f32": [_V] * 5 + [_I] * 3 + [_V],
+        "cauchy_mean_bwd_f32": [_V] * 6 + [_I] * 3 + [_V],
+    },
+    "frozen_attract": {
+        "frozen_attract_fwd_f32": [_V] * 5 + [_I] * 3 + [_V],
+        "frozen_attract_bwd_f32": [_V] * 7 + [_I] * 3 + [_V],
     },
 }
 

@@ -1,0 +1,136 @@
+"""K4 ``cauchy_mean``: the Cauchy-weighted sum over the K cluster means.
+
+Replaces the TPU kernels ``src/repro/kernels/cauchy_mean/cauchy_mean.py``
+(``cauchy_mean_fwd_pallas`` and ``cauchy_mean_bwd_pallas``) and their
+custom VJP (``ops.py:_build_op``), hand-written for Hopper in
+``csrc/cauchy_mean.cu``. Per head b, with q = 1/(1 + ‖θ_b − μ_r‖²):
+
+    s_b  = Σ_r w_r·[r ≠ own_b]·q
+    gθ_b = −2·ḡ_b·Σ_r w_r·[r ≠ own_b]·q²·(θ_b − μ_r)
+
+:class:`CauchyMean` wraps the pair as a ``torch.autograd.Function`` whose
+gradient reaches θ only, as the JAX VJP's does (the means are refreshed,
+never learned). The serving step's M̃ term runs through it.
+
+Bound on the card: d = 2, so B·K Cauchy terms on CUDA cores (about 42
+MFLOP at the serving shape B 1024, K 4096, under a microsecond of the fp32
+rate): launch latency holds each call. One warp per head walks all K means
+from shared memory, so the sum has one fixed order per head.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, registry
+
+TOL = (1e-5, 1e-6)  # the JAX spec's (rtol, atol)
+MAX_D = 4  # out dims the CUDA kernel is instantiated for
+
+
+def cauchy_mean_fwd_plain(th, mu, w, own):
+    """s (B,) in the JAX oracle's op sequence (``ref.py``)."""
+    d2 = torch.sum(torch.square(th[:, None, :] - mu[None, :, :]), -1)  # (B, K)
+    q = 1.0 / (1.0 + d2)
+    K = mu.shape[0]
+    mask = own[:, None] != torch.arange(K, device=own.device, dtype=own.dtype)[None, :]
+    return torch.sum(q * w[None, :] * mask, -1)
+
+
+def cauchy_mean_bwd_plain(th, mu, w, own, gbar):
+    """gθ (B, d) for upstream ``gbar`` (the oracle's ``vjp_ref``)."""
+    diff = th[:, None, :] - mu[None, :, :]  # (B, K, d)
+    q = 1.0 / (1.0 + torch.sum(torch.square(diff), -1))
+    K = mu.shape[0]
+    mask = own[:, None] != torch.arange(K, device=own.device, dtype=own.dtype)[None, :]
+    factor = w[None, :] * mask * q * q
+    return gbar[:, None] * (-2.0) * torch.einsum("bk,bkd->bd", factor, diff)
+
+
+def _check(name, th, mu, w, own, **extra):
+    device = registry.require_cuda(name, theta=th, means=mu, cell_w=w, own_cell=own, **extra)
+    registry.require_dtype(name, torch.float32, theta=th, means=mu, cell_w=w, **extra)
+    registry.require_dtype(name, torch.int32, own_cell=own)
+    if th.dim() != 2 or mu.dim() != 2 or th.shape[1] != mu.shape[1]:
+        raise ValueError(f"{name}: want θ (B, d) and μ (K, d), got {tuple(th.shape)}, {tuple(mu.shape)}")
+    B, d = th.shape
+    K = mu.shape[0]
+    if tuple(w.shape) != (K,) or tuple(own.shape) != (B,):
+        raise ValueError(f"{name}: cell_w must be ({K},) and own_cell ({B},)")
+    for label, t in extra.items():
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"{name}: {label} must be ({B},)")
+    if B < 1 or K < 1 or not 1 <= d <= MAX_D:
+        raise ValueError(f"{name}: B={B}, K={K}, d={d} outside the kernel (B, K ≥ 1, 1 ≤ d ≤ {MAX_D})")
+    return device, (B, K, d)
+
+
+def cauchy_mean_fwd_cuda(th, mu, w, own):
+    device, (B, K, d) = _check("cauchy_mean_fwd", th, mu, w, own)
+    out = torch.empty((B,), dtype=torch.float32, device=device)
+    lib = _build.load("cauchy_mean")
+    with torch.cuda.device(device):
+        err = lib.cauchy_mean_fwd_f32(
+            th.data_ptr(), mu.data_ptr(), w.data_ptr(), own.data_ptr(), out.data_ptr(),
+            B, K, d, torch.cuda.current_stream(device).cuda_stream,
+        )
+    _build.check(err, "cauchy_mean_fwd")
+    FWD.launches += 1
+    return out
+
+
+def cauchy_mean_bwd_cuda(th, mu, w, own, gbar):
+    device, (B, K, d) = _check("cauchy_mean_bwd", th, mu, w, own, gbar=gbar)
+    gth = torch.empty_like(th)
+    lib = _build.load("cauchy_mean")
+    with torch.cuda.device(device):
+        err = lib.cauchy_mean_bwd_f32(
+            th.data_ptr(), mu.data_ptr(), w.data_ptr(), own.data_ptr(), gbar.data_ptr(),
+            gth.data_ptr(), B, K, d, torch.cuda.current_stream(device).cuda_stream,
+        )
+    _build.check(err, "cauchy_mean_bwd")
+    BWD.launches += 1
+    return gth
+
+
+class CauchyMean(torch.autograd.Function):
+    """s (B,); differentiable in θ only."""
+
+    @staticmethod
+    def forward(ctx, th, mu, w, own):
+        ctx.save_for_backward(th, mu, w, own)
+        return registry.dispatch("cauchy_mean_fwd", th, mu, w, own)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        gth = registry.dispatch("cauchy_mean_bwd", *ctx.saved_tensors, gbar.float().contiguous())
+        return gth, None, None, None
+
+
+def cauchy_weighted_sum(theta_i, means, cell_w, own_cell):
+    """s_b = Σ_r cell_w[r]·[own_cell[b] ≠ r]·q(θ_b, μ_r); inputs cast to
+    fp32 (own to int32) and made contiguous, as the JAX op's ``_prep`` does."""
+    f = lambda t: t.float().contiguous()  # noqa: E731
+    return CauchyMean.apply(
+        f(theta_i), f(means.detach()), f(cell_w.detach()), own_cell.to(torch.int32).contiguous()
+    )
+
+
+FWD = registry.register(
+    registry.Kernel(
+        name="cauchy_mean_fwd",
+        plain=cauchy_mean_fwd_plain,
+        cuda=cauchy_mean_fwd_cuda,
+        source="src/repro_torch/csrc/cauchy_mean.cu",
+        replaces="src/repro/kernels/cauchy_mean/cauchy_mean.py:83",
+    )
+)
+BWD = registry.register(
+    registry.Kernel(
+        name="cauchy_mean_bwd",
+        plain=cauchy_mean_bwd_plain,
+        cuda=cauchy_mean_bwd_cuda,
+        source="src/repro_torch/csrc/cauchy_mean.cu",
+        replaces="src/repro/kernels/cauchy_mean/cauchy_mean.py:104",
+    )
+)

@@ -1,0 +1,137 @@
+"""K5 ``frozen_attract``: a query's attraction to its k frozen neighbours.
+
+Replaces the TPU kernels ``src/repro/kernels/frozen_attract/frozen_attract.py``
+(``frozen_attract_fwd_pallas`` and ``frozen_attract_bwd_pallas``) and their
+custom VJP (``ops.py:_build_op``), hand-written for Hopper in
+``csrc/frozen_attract.cu``. Per query b, with d² = ‖θ_b − nb_bs‖² and
+q = 1/(1 + d²):
+
+    loss_b = Σ_s w_bs·(log(q + m_b) + log1p(d²))
+    gθ_b   = 2·ḡ_b·Σ_s w_bs·(q − q²/(q + m_b))·(θ_b − nb_bs)
+    gm_b   = ḡ_b·Σ_s w_bs/(q + m_b)
+
+:class:`FrozenAttract` wraps the pair as a ``torch.autograd.Function``
+whose gradients reach θ and m only: the neighbours and their weights are
+the frozen map, so a query can never move it.
+
+Bound on the card: bytes, about 200 KB a launch at the serving shape
+(B 1024, k 15, d 2), so launch latency holds each call. One thread per
+query walks its k neighbours in registers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, registry
+
+TOL = (1e-5, 1e-6)  # the JAX spec's (rtol, atol)
+MAX_D = 4  # out dims the CUDA kernel is instantiated for
+
+
+def frozen_attract_fwd_plain(th, nb, w, m):
+    """loss (B,) in the JAX oracle's op sequence (``ref.py``)."""
+    d2 = torch.sum(torch.square(th[:, None, :] - nb), -1)  # (B, k)
+    q = 1.0 / (1.0 + d2)
+    return torch.sum(w * (torch.log(q + m[:, None]) + torch.log1p(d2)), -1)
+
+
+def frozen_attract_bwd_plain(th, nb, w, m, gbar):
+    """(gθ (B, d), gm (B,)) for upstream ``gbar`` (the oracle's ``vjp_ref``)."""
+    diff = th[:, None, :] - nb  # (B, k, d)
+    q = 1.0 / (1.0 + torch.sum(torch.square(diff), -1))
+    qm = q + m[:, None]
+    factor = w * (q - q * q / qm)
+    g_theta = 2.0 * gbar[:, None] * torch.einsum("bk,bkd->bd", factor, diff)
+    return g_theta, gbar * torch.sum(w / qm, -1)
+
+
+def _check(name, th, nb, w, m, **extra):
+    device = registry.require_cuda(name, theta=th, nbrs=nb, w=w, m=m, **extra)
+    registry.require_dtype(name, torch.float32, theta=th, nbrs=nb, w=w, m=m, **extra)
+    if th.dim() != 2 or nb.dim() != 3:
+        raise ValueError(f"{name}: want θ (B, d) and nbrs (B, k, d), got {tuple(th.shape)}, {tuple(nb.shape)}")
+    B, d = th.shape
+    k = nb.shape[1]
+    if tuple(nb.shape) != (B, k, d) or tuple(w.shape) != (B, k) or tuple(m.shape) != (B,):
+        raise ValueError(
+            f"{name}: want nbrs ({B}, k, {d}), w ({B}, k), m ({B},), got "
+            f"{tuple(nb.shape)}, {tuple(w.shape)}, {tuple(m.shape)}"
+        )
+    for label, t in extra.items():
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"{name}: {label} must be ({B},)")
+    if B < 1 or k < 1 or not 1 <= d <= MAX_D:
+        raise ValueError(f"{name}: B={B}, k={k}, d={d} outside the kernel (B, k ≥ 1, 1 ≤ d ≤ {MAX_D})")
+    return device, (B, k, d)
+
+
+def frozen_attract_fwd_cuda(th, nb, w, m):
+    device, (B, k, d) = _check("frozen_attract_fwd", th, nb, w, m)
+    loss = torch.empty((B,), dtype=torch.float32, device=device)
+    lib = _build.load("frozen_attract")
+    with torch.cuda.device(device):
+        err = lib.frozen_attract_fwd_f32(
+            th.data_ptr(), nb.data_ptr(), w.data_ptr(), m.data_ptr(), loss.data_ptr(),
+            B, k, d, torch.cuda.current_stream(device).cuda_stream,
+        )
+    _build.check(err, "frozen_attract_fwd")
+    FWD.launches += 1
+    return loss
+
+
+def frozen_attract_bwd_cuda(th, nb, w, m, gbar):
+    device, (B, k, d) = _check("frozen_attract_bwd", th, nb, w, m, gbar=gbar)
+    gth = torch.empty_like(th)
+    gm = torch.empty_like(m)
+    lib = _build.load("frozen_attract")
+    with torch.cuda.device(device):
+        err = lib.frozen_attract_bwd_f32(
+            th.data_ptr(), nb.data_ptr(), w.data_ptr(), m.data_ptr(), gbar.data_ptr(),
+            gth.data_ptr(), gm.data_ptr(), B, k, d,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _build.check(err, "frozen_attract_bwd")
+    BWD.launches += 1
+    return gth, gm
+
+
+class FrozenAttract(torch.autograd.Function):
+    """loss (B,); differentiable in θ and m only."""
+
+    @staticmethod
+    def forward(ctx, th, nb, w, m):
+        ctx.save_for_backward(th, nb, w, m)
+        return registry.dispatch("frozen_attract_fwd", th, nb, w, m)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        gth, gm = registry.dispatch("frozen_attract_bwd", *ctx.saved_tensors, gbar.float().contiguous())
+        return gth, None, None, gm
+
+
+def frozen_attract(theta_q, nbrs, w, m):
+    """Per-query loss (B,) over the frozen kNN; inputs cast to fp32 and made
+    contiguous, as the JAX op's ``_prep`` does."""
+    f = lambda t: t.float().contiguous()  # noqa: E731
+    return FrozenAttract.apply(f(theta_q), f(nbrs.detach()), f(w.detach()), f(m))
+
+
+FWD = registry.register(
+    registry.Kernel(
+        name="frozen_attract_fwd",
+        plain=frozen_attract_fwd_plain,
+        cuda=frozen_attract_fwd_cuda,
+        source="src/repro_torch/csrc/frozen_attract.cu",
+        replaces="src/repro/kernels/frozen_attract/frozen_attract.py:71",
+    )
+)
+BWD = registry.register(
+    registry.Kernel(
+        name="frozen_attract_bwd",
+        plain=frozen_attract_bwd_plain,
+        cuda=frozen_attract_bwd_cuda,
+        source="src/repro_torch/csrc/frozen_attract.cu",
+        replaces="src/repro/kernels/frozen_attract/frozen_attract.py:92",
+    )
+)

@@ -11,8 +11,9 @@ of the tensors it is given, and by nothing else:
 Each CUDA wrapper adds one to its kernel's ``launches`` right after the
 kernel launched, and nowhere else, so a run can show which kernels its
 path went through (:func:`launch_counts`, :func:`reset_launch_counts`).
-Kernel names follow the JAX package's registry; the nomad_step pair is two
-entries, one per direction.
+Kernel names follow the JAX package's registry; the nomad_step,
+cauchy_mean and frozen_attract pairs are two entries each, one per
+direction.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ def register(kernel: Kernel) -> Kernel:
 
 
 def _load() -> None:
+    import repro_torch.kernels.cauchy_mean.ops  # noqa: F401
+    import repro_torch.kernels.frozen_attract.ops  # noqa: F401
     import repro_torch.kernels.kmeans_assign.ops  # noqa: F401
     import repro_torch.kernels.nomad_step.ops  # noqa: F401
     import repro_torch.kernels.pairwise.ops  # noqa: F401

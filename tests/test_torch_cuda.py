@@ -16,7 +16,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import NomadConfig  # noqa: E402
 from repro_torch.core.nomad import NomadProjection  # noqa: E402
 from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
+from repro_torch.serve import transform as serve_transform  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.kernels.cauchy_mean import ops as cauchy_ops  # noqa: E402
+from repro_torch.kernels.frozen_attract import ops as attract_ops  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ops as kmeans_ops  # noqa: E402
 from repro_torch.kernels.nomad_step import ops as nomad_ops  # noqa: E402
 from repro_torch.kernels.pairwise import ops as pairwise_ops  # noqa: E402
@@ -82,6 +85,61 @@ def test_fit_on_card_is_deterministic_and_uses_the_kernels(card):
                       n_exact_negatives=8, batch_size=512, n_epochs=3)
     registry.reset_launch_counts()
     r1 = NomadProjection(cfg, device=card).fit(x)
-    assert all(c > 0 for c in registry.launch_counts().values())
+    counts = registry.launch_counts()
+    assert all(counts[n] > 0 for n in ("nomad_step_fwd", "nomad_step_bwd", "kmeans_assign", "pairwise"))
     r2 = NomadProjection(cfg, device=card).fit(x)
     np.testing.assert_array_equal(r1.embedding, r2.embedding)
+
+
+@pytest.mark.parametrize("shape", [(100, 64, 2), (64, 100, 3)])
+def test_cauchy_mean_kernels_match_plain(card, shape):
+    B, K, d = shape
+    g = torch.Generator(device=card).manual_seed(3)
+    args = (_randn(g, B, d, device=card, scale=3.0), _randn(g, K, d, device=card, scale=3.0),
+            torch.rand((K,), generator=g, device=card),
+            torch.randint(0, K, (B,), generator=g, device=card, dtype=torch.int32))
+    gbar = torch.rand((B,), generator=g, device=card)
+    tol = dict(rtol=cauchy_ops.TOL[0], atol=cauchy_ops.TOL[1])
+    torch.testing.assert_close(cauchy_ops.cauchy_mean_fwd_cuda(*args), cauchy_ops.cauchy_mean_fwd_plain(*args), **tol)
+    torch.testing.assert_close(cauchy_ops.cauchy_mean_bwd_cuda(*args, gbar),
+                               cauchy_ops.cauchy_mean_bwd_plain(*args, gbar), **tol)
+
+
+@pytest.mark.parametrize("shape", [(64, 8, 2), (100, 5, 3)])
+def test_frozen_attract_kernels_match_plain(card, shape):
+    B, k, d = shape
+    g = torch.Generator(device=card).manual_seed(4)
+    args = (_randn(g, B, d, device=card, scale=3.0), _randn(g, B, k, d, device=card, scale=3.0),
+            torch.rand((B, k), generator=g, device=card), torch.rand((B,), generator=g, device=card) * 5.0)
+    gbar = torch.rand((B,), generator=g, device=card)
+    tol = dict(rtol=attract_ops.TOL[0], atol=attract_ops.TOL[1])
+    torch.testing.assert_close(attract_ops.frozen_attract_fwd_cuda(*args), attract_ops.frozen_attract_fwd_plain(*args), **tol)
+    for got, want in zip(attract_ops.frozen_attract_bwd_cuda(*args, gbar),
+                         attract_ops.frozen_attract_bwd_plain(*args, gbar)):
+        torch.testing.assert_close(got, want, **tol)
+
+
+def test_negative_slots_same_on_card_and_cpu(card):
+    seeds = torch.tensor([0, 5, 2**32 - 1], dtype=torch.int64)
+    rows = torch.tensor([0, 7, 2**31], dtype=torch.int64)
+    cnt = torch.tensor([1, 300, 17], dtype=torch.int64)
+    cpu = serve_transform.sample_negative_slots(seeds, rows, 3, cnt, 16)
+    gpu = serve_transform.sample_negative_slots(seeds.to(card), rows.to(card), 3, cnt.to(card), 16)
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+def test_serving_on_card_is_batch_invariant_and_uses_the_kernels(card):
+    x, _ = gaussian_mixture(2000, 16, n_components=4, seed=1)
+    q, _ = gaussian_mixture(300, 16, n_components=4, seed=7)
+    cfg = NomadConfig(n_points=2000, dim=16, n_clusters=4, n_neighbors=10, n_noise=16,
+                      n_exact_negatives=4, batch_size=256, n_epochs=3, serve_microbatch=128,
+                      transform_steps=6)
+    est = NomadProjection(cfg, device=card)
+    est.fit(x)
+    registry.reset_launch_counts()
+    a = est.map_server(microbatch=64).transform(q, seed=0)
+    counts = registry.launch_counts()
+    for name in ("kmeans_assign", "cauchy_mean_fwd", "cauchy_mean_bwd", "frozen_attract_fwd", "frozen_attract_bwd"):
+        assert counts[name] > 0, name
+    b = est.map_server(microbatch=256).transform(q, seed=0)
+    np.testing.assert_array_equal(a.embedding, b.embedding)

@@ -5,6 +5,7 @@ carrying the JAX package's index and θ across, and the device rule."""
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from repro_torch.core.nomad import NomadProjection, prepare_inputs  # noqa: E402
 from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
 from repro_torch.index.ann import index_from_arrays  # noqa: E402
 from repro_torch.index.build import IndexBuilder  # noqa: E402
+from repro_torch.serve import MapServer  # noqa: E402
 
 CFG = NomadConfig(
     n_points=5000, dim=32, n_clusters=8, n_neighbors=15, n_noise=32,
@@ -115,7 +117,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         IndexBuilder(SMALL.replace(chunk_rows=256), device="cpu")
     with pytest.raises(NotImplementedError):
-        NomadProjection(SMALL.replace(checkpoint_dir="ck"), device="cpu")
+        MapServer(SimpleNamespace(cfg=SMALL), strategy="sharded")
 
 
 def test_prepare_inputs_gate():

@@ -21,6 +21,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import sys\n"
         "import repro_torch, repro_torch.core.nomad, repro_torch.index.build\n"
         "import repro_torch.core.strategy, repro_torch.kernels.registry\n"
+        "import repro_torch.serve, repro_torch.serve.transform, repro_torch.checkpoint\n"
+        "from repro_torch.kernels import registry\n"
+        "registry.names()  # imports every kernel module\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -5,8 +5,9 @@ Inputs are drawn with numpy from a seed, like the JAX spec's own
 ``make_inputs``, rounded to each dtype of the spec's grid (bf16 reaches the
 port as its exact fp32 value, as the JAX ops cast it), and reach both
 frameworks as the same values. Each kernel is also held against its
-Pallas kernel in interpret mode at one small shape, and the nomad_step
-``autograd.Function`` against ``jax.grad`` of the JAX oracle.
+Pallas kernel in interpret mode at one small shape, and each
+``autograd.Function`` (nomad_step, cauchy_mean, frozen_attract) against
+``jax.grad`` of the JAX oracle.
 """
 
 from __future__ import annotations
@@ -20,8 +21,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import registry as jax_registry  # noqa: E402
+from repro.kernels.cauchy_mean.ref import cauchy_weighted_sum_ref  # noqa: E402
+from repro.kernels.frozen_attract.ref import frozen_attract_ref  # noqa: E402
 from repro.kernels.nomad_step.ref import nomad_step_ref  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.kernels.cauchy_mean import ops as cauchy_ops  # noqa: E402
+from repro_torch.kernels.frozen_attract import ops as attract_ops  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ops as kmeans_ops  # noqa: E402
 from repro_torch.kernels.nomad_step import ops as nomad_ops  # noqa: E402
 from repro_torch.kernels.pairwise import ops as pairwise_ops  # noqa: E402
@@ -36,6 +41,14 @@ def _make(name, sig, seed):
         return [rng.normal(0, 3, ts), rng.normal(0, 3, ps), rng.uniform(size=ws),
                 rng.normal(0, 3, ns), rng.uniform(size=nws), rng.normal(0, 3, ms),
                 rng.uniform(size=cs), rng.integers(0, ms[0], os_).astype(np.int32)]
+    if name == "cauchy_mean":
+        (ts, _), (ms, _), (ws, _), (os_, _) = sig
+        return [rng.normal(0, 3, ts), rng.normal(0, 3, ms), rng.uniform(size=ws),
+                rng.integers(0, ms[0], os_).astype(np.int32)]
+    if name == "frozen_attract":
+        (ts, _), (ns, _), (ws, _), (ms, _) = sig
+        return [rng.normal(0, 3, ts), rng.normal(0, 3, ns), rng.uniform(size=ws),
+                rng.uniform(size=ms) * 5.0]
     return [rng.normal(size=shape) for shape, _ in sig]
 
 
@@ -52,8 +65,16 @@ def _inputs(name, shape_idx, dtype):
     )
 
 
-_REF = {n: jax.jit(jax_registry.get(n).ref) for n in ("pairwise", "kmeans_assign", "nomad_step")}
+_REF = {n: jax.jit(jax_registry.get(n).ref)
+        for n in ("pairwise", "kmeans_assign", "nomad_step", "cauchy_mean", "frozen_attract")}
 _REF_GRAD = jax.jit(jax.grad(lambda *a: jnp.mean(nomad_step_ref(*a)), argnums=(0, 1, 3)))
+# the serving kernels' differentiable inputs: θ for cauchy_mean, θ and m
+# for frozen_attract
+_SERVE_GRAD = {
+    "cauchy_mean": (jax.jit(jax.grad(lambda *a: jnp.mean(cauchy_weighted_sum_ref(*a)))), (0,)),
+    "frozen_attract": (jax.jit(jax.grad(lambda *a: jnp.mean(frozen_attract_ref(*a)), argnums=(0, 3))), (0, 3)),
+}
+_SERVE_OP = {"cauchy_mean": cauchy_ops, "frozen_attract": attract_ops}
 
 
 def _grid(name):
@@ -120,9 +141,85 @@ def test_nomad_step_no_grad_to_frozen_inputs():
     assert all(t.grad is None for t in frozen)
 
 
+def _serve_apply(name, targs):
+    op = cauchy_ops.cauchy_weighted_sum if name == "cauchy_mean" else attract_ops.frozen_attract
+    return op(*targs)
+
+
+@pytest.mark.parametrize(
+    "name,shape_idx,dtype",
+    [pytest.param(n, i, dt, id=f"{n}-shape{i}-{dt}")
+     for n in ("cauchy_mean", "frozen_attract")
+     for i, dt in ((p.values[0], p.values[1]) for p in _grid(n))],
+)
+def test_serve_kernel_plain_matches_jax_oracle(name, shape_idx, dtype):
+    """K4 (``cauchy_weighted_sum``) and K5 (``frozen_attract``) forward,
+    at every check shape and dtype of the JAX spec."""
+    args, targs = _inputs(name, shape_idx, dtype)
+    want = np.asarray(_REF[name](*args))
+    got = _serve_apply(name, targs)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, *_SERVE_OP[name].TOL)
+
+
+@pytest.mark.parametrize(
+    "name,shape_idx,dtype",
+    [pytest.param(n, i, dt, id=f"{n}-shape{i}-{dt}")
+     for n in ("cauchy_mean", "frozen_attract")
+     for i, dt in ((p.values[0], p.values[1]) for p in _grid(n))],
+)
+def test_serve_kernel_grads_match_jax_grad(name, shape_idx, dtype):
+    """The K4/K5 autograd.Functions (plain backward on the CPU) against
+    jax.grad of the JAX oracle's batch mean, for every differentiable input.
+    Both sides differentiate in fp32 at the dtype-rounded values (the port
+    casts to fp32 as the JAX ops do; jax.grad at a bf16 input would round
+    the cotangent itself to bf16)."""
+    args, targs = _inputs(name, shape_idx, dtype)
+    grad_fn, argnums = _SERVE_GRAD[name]
+    want = grad_fn(*[a.astype(jnp.float32) if a.dtype != jnp.int32 else a for a in args])
+    want = want if isinstance(want, tuple) else (want,)
+    full = list(targs)
+    diff = [full[i].clone().requires_grad_() for i in argnums]
+    for i, t in zip(argnums, diff):
+        full[i] = t
+    _serve_apply(name, full).mean().backward()
+    for t, w, i in zip(diff, want, argnums):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), *_SERVE_OP[name].TOL, err_msg=f"arg {i}")
+
+
+@pytest.mark.parametrize("name", ["cauchy_mean", "frozen_attract"])
+def test_serve_kernel_no_grad_to_frozen_inputs(name):
+    """The means, weights, cell ids and neighbours get no gradient, as the
+    JAX VJPs return None: serving cannot move the map."""
+    _args, targs = _inputs(name, 1, "float32")
+    full = [t.clone().requires_grad_() if t.is_floating_point() else t for t in targs]
+    _serve_apply(name, full).sum().backward()
+    assert full[0].grad is not None
+    assert full[1].grad is None and full[2].grad is None  # μ, w or nbrs, w
+
+
+@pytest.mark.parametrize("name", ["cauchy_mean", "frozen_attract"])
+def test_serve_kernel_grads_match_pallas_interpret(name):
+    """The backward of the JAX package's Pallas kernel (interpret mode,
+    through its custom VJP) against the port's plain backward, at one
+    small ragged shape."""
+    spec = jax_registry.get(name)
+    args, targs = _inputs(name, 1, "float32")
+    _grad_fn, argnums = _SERVE_GRAD[name]
+    tiles = spec.tiles_for_backend("cpu")
+    want = jax.grad(lambda *a: jnp.mean(spec.pallas(*a, tiles=tiles, interpret=True)), argnums=argnums)(*args)
+    full = list(targs)
+    diff = [full[i].clone().requires_grad_() for i in argnums]
+    for i, t in zip(argnums, diff):
+        full[i] = t
+    _serve_apply(name, full).mean().backward()
+    for t, w in zip(diff, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), *spec.tol)
+
+
 @pytest.mark.parametrize(
     "name,shape_idx",
-    [("pairwise", 1), ("kmeans_assign", 1), ("nomad_step", 1)],
+    [("pairwise", 1), ("kmeans_assign", 1), ("nomad_step", 1), ("cauchy_mean", 1), ("frozen_attract", 1)],
 )
 def test_plain_matches_pallas_interpret(name, shape_idx):
     """The JAX package's Pallas kernel, run in interpret mode, against the
@@ -133,7 +230,7 @@ def test_plain_matches_pallas_interpret(name, shape_idx):
     if name == "kmeans_assign":
         kmeans_ops.oracle_check(targs[0], targs[1], kmeans_ops.assign_nearest(*targs), got_pallas)
         return
-    port = registry.dispatch(name if name != "nomad_step" else "nomad_step_fwd", *targs)
+    port = registry.dispatch(name if name in ("pairwise", "kmeans_assign") else f"{name}_fwd", *targs)
     port = port[0] if name == "nomad_step" else port
     np.testing.assert_allclose(port.numpy(), np.asarray(got_pallas), *spec.tol)
 
@@ -150,7 +247,12 @@ def test_registry_dispatches_by_device_only():
     before = registry.launch_counts()
     registry.dispatch("kmeans_assign", x, x)
     assert registry.launch_counts() == before  # the plain path launches nothing
-    assert set(registry.names()) == {"pairwise", "kmeans_assign", "nomad_step_fwd", "nomad_step_bwd"}
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        cauchy_ops.cauchy_mean_fwd_cuda(x[:, :2], x[:, :2], x[:, 0], torch.zeros(5, dtype=torch.int32))
+    assert set(registry.names()) == {
+        "pairwise", "kmeans_assign", "nomad_step_fwd", "nomad_step_bwd",
+        "cauchy_mean_fwd", "cauchy_mean_bwd", "frozen_attract_fwd", "frozen_attract_bwd",
+    }
     for n in registry.names():
         k = registry.get(n)
         assert k.replaces.startswith("src/repro/kernels/") and k.source.startswith("src/repro_torch/csrc/")
