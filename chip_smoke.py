@@ -250,23 +250,27 @@ def check_kmeans_assign(device, shapes, main_shape):
     return rows, timing
 
 
-def check_pairwise(device, shapes, cand_shape, cell_shape):
+def check_pairwise(device, shapes, cand_shape, cell_shape, query_shape):
     """K3 against its plain version: the spec's (2e-5, 2e-5) at its check
     shapes; at D = 768 the error bound scaled by ‖x‖² + ‖y‖²
-    (``pairwise/ops.py:allowed_error``)."""
+    (``pairwise/ops.py:allowed_error``). The batched shapes are the in-cell
+    kNN's (each cell against itself) and serving's query kNN (each query,
+    one row, against its own cell: x and y drawn apart, n ≠ m)."""
     import torch
 
     from repro_torch.kernels.pairwise import ops
 
     rows = []
-    cases = [(None, s) for s in shapes] + [(None, cand_shape), (cell_shape[0], cell_shape[1:])]
-    for i, (batch, (n, m, d)) in enumerate(cases):
+    cases = [(None, s, False) for s in shapes] + [
+        (None, cand_shape, False), (cell_shape[0], cell_shape[1:], True), (query_shape[0], query_shape[1:], False)]
+    for i, (batch, (n, m, d), same) in enumerate(cases):
         g = _gen(device, 200 + i)
-        if batch is None:
-            x = torch.randn(n, d, generator=g, device=device)
-            y = torch.randn(m, d, generator=g, device=device)
-        else:  # in-cell: each cell against itself
+        if same:  # in-cell: each cell against itself
             x = y = torch.randn(batch, n, d, generator=g, device=device)
+        else:
+            lead = () if batch is None else (batch,)
+            x = torch.randn(*lead, n, d, generator=g, device=device)
+            y = torch.randn(*lead, m, d, generator=g, device=device)
         got = ops.pairwise_dist2_cuda(x, y)
         want = ops.pairwise_dist2_plain(x, y)
         torch.cuda.synchronize()
@@ -299,7 +303,10 @@ def check_pairwise(device, shapes, cand_shape, cell_shape):
     b, n, _, d = cell_shape
     xc = torch.randn(b, n, d, generator=g, device=device)
     cell = timed(xc, xc, b)
-    return rows, {"pairwise": cand, "pairwise[in-cell batch]": cell}
+    b, n, m, d = query_shape
+    query = timed(torch.randn(b, n, d, generator=g, device=device),
+                  torch.randn(b, m, d, generator=g, device=device), b)
+    return rows, {"pairwise": cand, "pairwise[in-cell batch]": cell, "pairwise[query batch]": query}
 
 
 def _check_pair(name, outs, tol, scaled):
@@ -589,9 +596,9 @@ def small_quality(device):
 def mixture_queries(n, dim, n_components, seed, fit_seed=0, spread=0.15):
     """New rows of the fit's mixture: the centres ``gaussian_mixture`` drew
     from ``fit_seed``, fresh labels and noise from ``seed``."""
-    rng = np.random.default_rng(fit_seed)
-    centers = rng.normal(0, 1, (n_components, dim))
-    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    from repro_torch.data.synthetic import mixture_centers
+
+    centers = mixture_centers(np.random.default_rng(fit_seed), n_components, dim)
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, n_components, n)
     return (centers[labels] + rng.normal(0, spread / np.sqrt(dim), (n, dim))).astype(np.float32)
@@ -776,6 +783,7 @@ KMEANS_MAIN = (16384, 4096, 768)
 PAIRWISE_SHAPES = [(96, 128, 64), (100, 60, 33), (8, 257, 128), (64, 64, 16)]
 PAIRWISE_CAND = (16384, 4096, 768)
 PAIRWISE_CELL = (256, 305, 305, 768)  # 256 cells of capacity 305 against themselves
+PAIRWISE_QUERY = (256, 1, 305, 768)  # serving: a block of 256 queries, each against its cell
 
 TPU_KERNELS = [
     ("K1f nomad_step_fwd", "src/repro/kernels/nomad_step/nomad_step.py:166", "nomad_step_fwd"),
@@ -811,7 +819,7 @@ def kernel_phases(device):
     for name, fn, args in (
         ("nomad_step", check_nomad_step, (NOMAD_SHAPES, NOMAD_MAIN)),
         ("kmeans_assign", check_kmeans_assign, (KMEANS_SHAPES, KMEANS_MAIN)),
-        ("pairwise", check_pairwise, (PAIRWISE_SHAPES, PAIRWISE_CAND, PAIRWISE_CELL)),
+        ("pairwise", check_pairwise, (PAIRWISE_SHAPES, PAIRWISE_CAND, PAIRWISE_CELL, PAIRWISE_QUERY)),
         ("cauchy_mean", check_cauchy_mean, (CAUCHY_SHAPES, CAUCHY_SERVE)),
         ("frozen_attract", check_frozen_attract, (ATTRACT_SHAPES, ATTRACT_SERVE)),
     ):

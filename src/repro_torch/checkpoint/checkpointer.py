@@ -7,8 +7,9 @@ other's.
   and the caller's metadata: epoch, config, method, strategy, losses);
 * a write goes to ``step_<n>.tmp/`` and is committed by one atomic
   ``rename``, so a crash mid-write never corrupts the latest checkpoint;
-* row-sharded leaves are split into ``n_shards`` row blocks, one per shard
-  file, and restore concatenates them, whatever shard count wrote them;
+* the port writes one shard (it fits on one device); restore
+  concatenates the row blocks of row-sharded leaves, whatever shard count
+  wrote them, so a multi-shard JAX checkpoint loads too;
 * ``keep`` bounds the checkpoints retained (the oldest pruned after each
   commit).
 
@@ -63,17 +64,15 @@ def _step_dir(directory: str, step: int) -> str:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, *, n_shards: int = 1, keep: int = 3):
+    def __init__(self, directory: str, *, keep: int = 3):
         self.dir = directory
-        self.n_shards = n_shards
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
 
     def save(self, step: int, tree: dict, *, sharded_keys=(), metadata: Optional[dict] = None):
-        """``sharded_keys``: names (flat paths) whose leading axis is split
-        into ``n_shards`` row blocks, one block per shard file."""
+        """``sharded_keys``: names (flat paths) whose leading axis a reader
+        splits over devices; the manifest records them."""
         arrays = {k: np.asarray(v) for k, v in _flatten(tree)}
-        sharded_keys = tuple(sharded_keys)
         tmp = _step_dir(self.dir, step) + ".tmp"
         final = _step_dir(self.dir, step)
         if os.path.exists(tmp):
@@ -81,23 +80,12 @@ class Checkpointer:
         os.makedirs(tmp)
         manifest = {
             "step": step,
-            "n_shards": self.n_shards,
+            "n_shards": 1,
             "sharded": list(sharded_keys),
             "metadata": metadata or {},
             "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)} for k, v in arrays.items()},
         }
-        for s in range(self.n_shards):
-            payload = {}
-            for k, v in arrays.items():
-                if k in sharded_keys:
-                    n = v.shape[0]
-                    if n % self.n_shards:
-                        raise ValueError(f"{k}: {n} rows do not split into {self.n_shards} shards")
-                    blk = n // self.n_shards
-                    payload[k] = v[s * blk : (s + 1) * blk]
-                elif s == 0:  # replicated leaves live in shard 0 only
-                    payload[k] = v
-            np.savez(os.path.join(tmp, f"shard_{s:05d}.npz"), **payload)
+        np.savez(os.path.join(tmp, "shard_00000.npz"), **arrays)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1)
         if os.path.exists(final):

@@ -85,7 +85,7 @@ def test_port_theta_loads_through_reference(port_ck):
 
 def test_reference_checkpoint_loads_through_port(tmp_path):
     """Written by the JAX Checkpointer with 4 shards; the port concatenates
-    them, and reads back a tree of its own writing."""
+    them, and the JAX Checkpointer reads back a tree the port wrote."""
     rng = np.random.default_rng(0)
     theta = rng.normal(size=(64, 2)).astype(np.float32)
     JaxCheckpointer(str(tmp_path / "j"), n_shards=4).save(
@@ -94,8 +94,8 @@ def test_reference_checkpoint_loads_through_port(tmp_path):
     got, meta = load_theta(str(tmp_path / "j"))
     np.testing.assert_array_equal(got, theta)
     assert meta == {"epoch": 7} and latest_step(str(tmp_path / "j")) == 7
-    Checkpointer(str(tmp_path / "p"), n_shards=2).save(1, {"theta": theta, "extra": {"a": np.arange(3)}},
-                                                       sharded_keys=("theta",))
+    Checkpointer(str(tmp_path / "p")).save(1, {"theta": theta, "extra": {"a": np.arange(3)}},
+                                           sharded_keys=("theta",))
     tree, _ = JaxCheckpointer(str(tmp_path / "p")).restore({"theta": None, "extra": {"a": None}})
     np.testing.assert_array_equal(tree["theta"], theta)
     np.testing.assert_array_equal(tree["extra"]["a"], np.arange(3))

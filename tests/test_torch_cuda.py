@@ -38,11 +38,12 @@ def _randn(g, *shape, device, scale=1.0):
     return torch.randn(shape, generator=g, device=device) * scale
 
 
-@pytest.mark.parametrize("shape", [(100, 60, 33), (8, 257, 128)])
+@pytest.mark.parametrize("shape", [(100, 60, 33), (8, 257, 128), (16, 1, 70, 33)])
 def test_pairwise_kernel_matches_plain(card, shape):
-    n, m, d = shape
+    """Unbatched, and batched with x and y apart (serving's query kNN)."""
+    *lead, n, m, d = shape
     g = torch.Generator(device=card).manual_seed(0)
-    x, y = _randn(g, n, d, device=card), _randn(g, m, d, device=card)
+    x, y = _randn(g, *lead, n, d, device=card), _randn(g, *lead, m, d, device=card)
     before = registry.get("pairwise").launches
     got = pairwise_ops.pairwise_dist2_cuda(x, y)
     assert registry.get("pairwise").launches == before + 1

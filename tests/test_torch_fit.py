@@ -20,7 +20,7 @@ from repro.metrics import neighborhood_preservation, random_triplet_accuracy  # 
 from repro.metrics.neighborhood import _topk_neighbors  # noqa: E402
 from repro_torch.configs import NomadConfig  # noqa: E402
 from repro_torch.core.nomad import NomadProjection, prepare_inputs  # noqa: E402
-from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
+from repro_torch.data.synthetic import gaussian_mixture, mixture_centers  # noqa: E402
 from repro_torch.index.ann import index_from_arrays  # noqa: E402
 from repro_torch.index.build import IndexBuilder  # noqa: E402
 from repro_torch.serve import MapServer  # noqa: E402
@@ -118,6 +118,16 @@ def test_unported_options_raise():
         IndexBuilder(SMALL.replace(chunk_rows=256), device="cpu")
     with pytest.raises(NotImplementedError):
         MapServer(SimpleNamespace(cfg=SMALL), strategy="sharded")
+
+
+def test_mixture_centers_are_the_mixtures():
+    """``mixture_centers`` from the same seed gives the centres the rows
+    scatter around, so new queries of a fit's mixture share its centres."""
+    x, labels = gaussian_mixture(400, 16, n_components=6, seed=4)
+    centers = mixture_centers(np.random.default_rng(4), 6, 16)
+    np.testing.assert_allclose(np.linalg.norm(centers, axis=1), 1.0, rtol=1e-12)
+    nearest = np.argmin(((x[:, None, :] - centers[None]) ** 2).sum(-1), axis=1)
+    np.testing.assert_array_equal(nearest, labels)
 
 
 def test_prepare_inputs_gate():

@@ -33,7 +33,7 @@ from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
 from repro_torch.index.ann import index_from_arrays  # noqa: E402
 from repro_torch.index.knn import query_cluster_knn  # noqa: E402
 from repro_torch.kernels.kmeans_assign.ops import assign_nearest  # noqa: E402
-from repro_torch.serve import FrozenMap, MapServer, TransformResult  # noqa: E402
+from repro_torch.serve import FrozenMap, MapServer, TransformResult, resolve_serve_strategy  # noqa: E402
 from repro_torch.serve import transform as tf  # noqa: E402
 
 N, DIM, NQ = 1500, 16, 300
@@ -320,7 +320,8 @@ def test_unported_serving_options_raise(port_fit, data, tmp_path):
     fz = est.map_server().frozen
     with pytest.raises(NotImplementedError, match="sharded"):
         MapServer(fz, strategy="sharded")
-    assert MapServer(fz, strategy="auto").strategy == "local"
+    assert resolve_serve_strategy("auto") == resolve_serve_strategy("local") == "local"
+    MapServer(fz, strategy="auto")  # local on one card
     path = str(tmp_path / "q.npy")
     np.save(path, q)
     with pytest.raises(NotImplementedError):
