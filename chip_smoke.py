@@ -46,8 +46,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
-# NVIDIA H100 SXM data sheet: fp32 on CUDA cores (no tensor cores), HBM3 rate
+# NVIDIA H100 SXM data sheet: fp32 on CUDA cores (no tensor cores), TF32 on
+# the tensor cores (dense), HBM3 rate
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TF32X3_PASSES = 3  # the 3xTF32 tile of K2 and K3 runs three TF32 products
 PEAK_BYTES_PER_S = 3.35e12
 
 # the main path: PubMed's published widths, N and epochs cut to fit one call
@@ -74,8 +77,15 @@ def main_config():
     return PUBMED.replace(n_points=MAIN_N, n_epochs=MAIN_EPOCHS)
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, tensor_cores: bool = False):
+    """The least time for the work: the larger of its operations at the
+    card's peak and its bytes at the memory rate. ``tensor_cores``: the
+    operations are the 3xTF32 tile's, three TF32 passes at the tensor-core
+    rate; otherwise fp32 on CUDA cores."""
+    if tensor_cores:
+        t_ops = TF32X3_PASSES * flops / PEAK_TF32_FLOPS * 1e3
+    else:
+        t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -208,15 +218,18 @@ def check_nomad_step(device, shapes, main_shape):
     return rows, timing
 
 
-def check_kmeans_assign(device, shapes, main_shape):
+def check_kmeans_assign(device, shapes, main_shape, serve_shape):
     """K2 against its plain version by the JAX spec's oracle rule: minimum
-    distances within (1e-4, 1e-4), chosen centroids distance-equivalent."""
+    distances within (1e-4, 1e-4), chosen centroids distance-equivalent, at
+    the spec's shapes, the fit's block and serving's batch; then the tie
+    case at both main-path row counts; then both timed."""
     import torch
 
     from repro_torch.kernels.kmeans_assign import ops
 
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows = []
-    for i, (n, k, d) in enumerate(list(shapes) + [main_shape]):
+    for i, (n, k, d) in enumerate(list(shapes) + [main_shape, serve_shape]):
         g = _gen(device, 100 + i)
         x = torch.randn(n, d, generator=g, device=device)
         c = torch.randn(k, d, generator=g, device=device)
@@ -226,28 +239,80 @@ def check_kmeans_assign(device, shapes, main_shape):
         ops.oracle_check(x, c, got, want)  # raises on disagreement
         rows.append({
             "shape": (n, k, d),
+            "chunks": ops.plan(n, k, sms)[0],
             "max_abs_err": _max_err(got[1], want[1]),
             "argmin_equal_frac": float((got[0] == want[0]).float().mean()),
             "ok": True,
         })
-    n, k, d = main_shape
-    g = _gen(device, 7)
-    x = torch.randn(n, d, generator=g, device=device)
+    ties = [kmeans_ties(device, n, *main_shape[1:], sms) for n in (serve_shape[0], main_shape[0])]
+
+    def timed(n, k, d, seed):
+        g = _gen(device, seed)
+        x = torch.randn(n, d, generator=g, device=device)
+        c = torch.randn(k, d, generator=g, device=device)
+
+        def library():  # two calls: the distance matrix, then its row minimum
+            return torch.cdist(x, c, compute_mode="use_mm_for_euclid_dist").min(-1)
+
+        flops, nbytes = 2.0 * n * k * d + 2.0 * n * k, 4.0 * (n * d + k * d + 2 * n)
+        chunks, chunk_cols = ops.plan(n, k, sms)
+        return {
+            "shape": (n, k, d),
+            "route": "tile", "tile": (ops.TILE, ops.TILE), "chunks": chunks, "chunk_cols": chunk_cols,
+            "ms": time_ms(lambda: ops.assign_nearest_cuda(x, c)),
+            "device_ms": device_ms(lambda: ops.assign_nearest_cuda(x, c)),
+            "plain_ms": time_ms(lambda: ops.assign_nearest_plain(x, c)),
+            "library_ms": time_ms(library),
+            "library_call": "torch.cdist(x, c, compute_mode='use_mm_for_euclid_dist').min(-1) (two calls)",
+            "bound": bound_ms(flops, nbytes, tensor_cores=True),
+            "bound_fp32": bound_ms(flops, nbytes),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+        }
+
+    timing = {"kmeans_assign": timed(*main_shape, seed=7),
+              "kmeans_assign[serve batch]": timed(*serve_shape, seed=8)}
+    return rows + ties, timing
+
+
+def kmeans_ties(device, n, k, d, sms):
+    """Duplicated centroids across chunk boundaries (c[2053] = c[5],
+    c[K-1] = c[0]) and every row drawn at or next to c[5] or c[0]: the
+    distances to a centroid and its copy are the same bits, so the argmin
+    must be the lower index on every row, as torch.argmin gives it. Rows
+    next to the copies (noise 0.5 a coordinate, still far nearer to them
+    than to any other centroid) are held to the oracle rule. Rows that
+    are exact copies have d² ≈ 0 against ‖x‖² + ‖c‖² ≈ 1536: there the
+    rule's 1e-4 is below fp32's own rounding (the plain version misses the
+    true 0 by up to ~2e-3), so their minimum is held to K3's scaled bound,
+    ``pairwise/ops.py:allowed_error``."""
+    import torch
+
+    from repro_torch.kernels.kmeans_assign import ops
+    from repro_torch.kernels.pairwise.ops import allowed_error
+
+    g = _gen(device, 300 + n)
     c = torch.randn(k, d, generator=g, device=device)
-
-    def library():  # two calls: the distance matrix, then its row minimum
-        return torch.cdist(x, c, compute_mode="use_mm_for_euclid_dist").min(-1)
-
-    timing = {"kmeans_assign": {
-        "ms": time_ms(lambda: ops.assign_nearest_cuda(x, c)),
-        "device_ms": device_ms(lambda: ops.assign_nearest_cuda(x, c)),
-        "plain_ms": time_ms(lambda: ops.assign_nearest_plain(x, c)),
-        "library_ms": time_ms(library),
-        "library_call": "torch.cdist(x, c, compute_mode='use_mm_for_euclid_dist').min(-1) (two calls)",
-        "bound": bound_ms(2.0 * n * k * d + 2.0 * n * k, 4.0 * (n * d + k * d + 2 * n)),
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-    }}
-    return rows, timing
+    c[2053] = c[5]
+    c[k - 1] = c[0]
+    lower = torch.tensor([5, 0], device=device).repeat(n // 2)
+    near = torch.arange(n, device=device) % 4 >= 2  # the others are exact copies
+    x = c[lower] + 0.5 * near.float()[:, None] * torch.randn(n, d, generator=g, device=device)
+    got = ops.assign_nearest_cuda(x, c)
+    want = ops.assign_nearest_plain(x, c)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0].long(), lower):
+        bad = int((got[0].long() != lower).sum())
+        raise AssertionError(f"kmeans_assign ties at {n} rows: {bad} rows did not keep the lower index")
+    ops.oracle_check(x[near], c, (got[0][near], got[1][near]), (want[0][near], want[1][near]))
+    copy = ~near
+    err = (got[1][copy] - want[1][copy]).abs()
+    bound = allowed_error(x[copy][:, None, :], c[lower[copy]][:, None, :])[:, 0, 0]
+    if not bool(torch.all(err <= bound)):
+        raise AssertionError(f"kmeans_assign ties at {n} rows: exact copies off by {float(err.max())}")
+    return {"tie_case": (n, k, d), "chunks": ops.plan(n, k, sms)[0], "lower_index_rows": n,
+            "near_rows_max_abs_err": _max_err(got[1][near], want[1][near]),
+            "copy_rows_max_abs_err": float(err.max()), "copy_rows_bound_min": float(bound.min()),
+            "plain_argmin_equal_frac": float((want[0].long() == lower).float().mean()), "ok": True}
 
 
 def check_pairwise(device, shapes, cand_shape, cell_shape, query_shape):
@@ -285,13 +350,19 @@ def check_pairwise(device, shapes, cand_shape, cell_shape, query_shape):
     def timed(x, y, batch):
         n, m, d = x.shape[-2], y.shape[-2], x.shape[-1]
         b = batch or 1
+        way = ops.route(b, n, m, d)
+        tile = ops.tile_for(n, m) if way == "tile" else None
+        flops, nbytes = b * (2.0 * n * m * d + 4.0 * n * m), 4.0 * b * (n * d + m * d + n * m)
         return {
+            "shape": (batch, n, m, d),
+            "route": way, "tile": (tile, tile) if tile else None,
             "ms": time_ms(lambda: ops.pairwise_dist2_cuda(x, y)),
             "device_ms": device_ms(lambda: ops.pairwise_dist2_cuda(x, y)),
             "plain_ms": time_ms(lambda: ops.pairwise_dist2_plain(x, y)),
             "library_ms": time_ms(lambda: torch.cdist(x, y, compute_mode="use_mm_for_euclid_dist")),
             "library_call": "torch.cdist(x, y, compute_mode='use_mm_for_euclid_dist') (distances, not squared)",
-            "bound": bound_ms(b * (2.0 * n * m * d + 4.0 * n * m), 4.0 * b * (n * d + m * d + n * m)),
+            "bound": bound_ms(flops, nbytes, tensor_cores=way == "tile"),
+            "bound_fp32": bound_ms(flops, nbytes),
         }
 
     g = _gen(device, 9)
@@ -780,6 +851,7 @@ NOMAD_SHAPES = [(512, 15, 16, 64, 2), (100, 5, 4, 33, 2), (64, 3, 8, 100, 3), (7
 NOMAD_MAIN = (8192, 15, 16, 4096, 2)
 KMEANS_SHAPES = [(512, 256, 64), (1000, 17, 32), (64, 512, 128), (513, 255, 48)]
 KMEANS_MAIN = (16384, 4096, 768)
+KMEANS_SERVE = (1024, 4096, 768)  # one serve_microbatch of queries against K centroids
 PAIRWISE_SHAPES = [(96, 128, 64), (100, 60, 33), (8, 257, 128), (64, 64, 16)]
 PAIRWISE_CAND = (16384, 4096, 768)
 PAIRWISE_CELL = (256, 305, 305, 768)  # 256 cells of capacity 305 against themselves
@@ -818,7 +890,7 @@ def kernel_phases(device):
     checks, timing = {}, {}
     for name, fn, args in (
         ("nomad_step", check_nomad_step, (NOMAD_SHAPES, NOMAD_MAIN)),
-        ("kmeans_assign", check_kmeans_assign, (KMEANS_SHAPES, KMEANS_MAIN)),
+        ("kmeans_assign", check_kmeans_assign, (KMEANS_SHAPES, KMEANS_MAIN, KMEANS_SERVE)),
         ("pairwise", check_pairwise, (PAIRWISE_SHAPES, PAIRWISE_CAND, PAIRWISE_CELL, PAIRWISE_QUERY)),
         ("cauchy_mean", check_cauchy_mean, (CAUCHY_SHAPES, CAUCHY_SERVE)),
         ("frozen_attract", check_frozen_attract, (ATTRACT_SHAPES, ATTRACT_SERVE)),
@@ -871,7 +943,12 @@ def main() -> int:
             "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "library_call": t.get("library_call"),
+            # the fp32 CUDA-core bound, comparable with the earlier slices' rows
+            "bound_fp32_ms": t.get("bound_fp32", t["bound"])[0],
         })
+        if name in ("kmeans_assign", "pairwise"):  # each timed shape: route, block tile, times
+            kernels[-1]["shapes"] = {label: {f: v for f, v in tt.items() if f != "max_abs_err"}
+                                     for label, tt in timing.items() if label.split("[")[0] == name}
     table = [{"kernel": label, "replaces": where, "ported": port is not None,
               "checked_on_card": port is not None
               and port.removesuffix("_fwd").removesuffix("_bwd") in checks}

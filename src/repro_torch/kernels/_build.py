@@ -35,8 +35,8 @@ SOURCES = ("pairwise", "kmeans_assign", "nomad_step", "cauchy_mean", "frozen_att
 _V, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of the entry points (every pointer and the stream as void*)
 SIGNATURES = {
-    "pairwise": {"pairwise_dist2_f32": [_V] * 5 + [_I] * 4 + [_V]},
-    "kmeans_assign": {"kmeans_assign_f32": [_V] * 6 + [_I] * 3 + [_V]},
+    "pairwise": {"pairwise_dist2_f32": [_V] * 3 + [_I] * 6 + [_V]},
+    "kmeans_assign": {"kmeans_assign_f32": [_V] * 6 + [_I] * 5 + [_V]},
     "nomad_step": {
         "nomad_step_fwd_f32": [_V] * 10 + [_I] * 5 + [_V],
         "nomad_step_bwd_f32": [_V] * 13 + [_I] * 5 + [_V],

@@ -2,16 +2,22 @@
 
 Replaces the TPU kernel ``src/repro/kernels/kmeans_assign/kmeans_assign.py``
 (``assign_nearest_pallas``), hand-written for Hopper in
-``csrc/kmeans_assign.cu`` over the fp32 tile of ``csrc/fp32_tile.cuh``.
+``csrc/kmeans_assign.cu`` over the 3xTF32 tensor-core tile of
+``csrc/tf32x3_tile.cuh``.
 
 Bound on the card: 2·N·K·D flops against (N + K)·D words in and 2·N out,
-so the fp32 CUDA-core rate bounds it at the main-path shape (16384-row
-blocks against 4096 centroids, D = 768). Each block owns 64 rows and walks
-every centroid tile, keeping the running (min, argmin) in registers: the
-(N, K) distance matrix is never written, which is the point of the fusion.
-IEEE fp32 throughout (no TF32), so argmins follow an fp32 oracle; ties keep
-the lowest centroid index. The oracle check (:func:`oracle_check`, the JAX
-spec's rule) accepts any distance-equivalent choice within 1e-4.
+so the tensor cores bound it at the main-path shape (16384-row blocks
+against 4096 centroids, D = 768). Each block owns 128 rows and walks a
+contiguous chunk of the centroids, keeping the running (min, argmin) in
+registers: the (N, K) distance matrix is never written, which is the point
+of the fusion. Where ``ceil(N/128)`` blocks cannot fill the card (serving's
+1024-row batches), :func:`plan` splits the centroids into chunks and a
+second kernel reduces the per-chunk partials in ascending order; the split
+never crosses D, so the result is the unsplit one bit for bit. The 3xTF32
+product is fp32-accurate (``tests/test_torch_tf32x3.py`` emulates it);
+ties keep the lowest centroid index. The oracle check
+(:func:`oracle_check`, the JAX spec's rule) accepts any
+distance-equivalent choice within 1e-4.
 """
 
 from __future__ import annotations
@@ -35,6 +41,31 @@ def assign_nearest_plain(x: torch.Tensor, cents: torch.Tensor):
     return torch.argmin(d2, -1).to(torch.int32), torch.amin(d2, -1)
 
 
+TILE = 128  # rows and centroids of one block tile (csrc/kmeans_assign.cu)
+
+
+def plan(n: int, k: int, sms: int) -> tuple[int, int]:
+    """(chunks, chunk_cols): split the K centroids into ``chunks``
+    contiguous chunks of ``chunk_cols`` (a multiple of TILE; the last may
+    be short) so that ceil(n/TILE) × chunks blocks, one an SM, finish
+    soonest. Minimises waves × tiles walked per block, then the chunk
+    count, so a call that already fills the card is not split."""
+    row_blocks = -(-n // TILE)
+    col_tiles = -(-k // TILE)
+    best = None
+    for c in range(1, col_tiles + 1):
+        per_block = -(-col_tiles // c)
+        chunks = -(-col_tiles // per_block)  # no empty chunk
+        cost = -(-row_blocks * chunks // sms) * per_block
+        if best is None or cost < best[0]:
+            best = (cost, chunks, per_block * TILE)
+    return best[1], best[2]
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def assign_nearest_cuda(x: torch.Tensor, cents: torch.Tensor):
     device = registry.require_cuda("kmeans_assign", x=x, cents=cents)
     registry.require_dtype("kmeans_assign", torch.float32, x=x, cents=cents)
@@ -44,15 +75,17 @@ def assign_nearest_cuda(x: torch.Tensor, cents: torch.Tensor):
     k = cents.shape[0]
     if min(n, k, d) < 1:
         raise ValueError(f"kmeans_assign: empty input {tuple(x.shape)} × {tuple(cents.shape)}")
+    chunks, chunk_cols = plan(n, k, _sm_count(device))
     arg = torch.empty((n,), dtype=torch.int32, device=device)
     mind = torch.empty((n,), dtype=torch.float32, device=device)
-    x2 = torch.empty((n,), dtype=torch.float32, device=device)
-    c2 = torch.empty((k,), dtype=torch.float32, device=device)
+    # per-(chunk, row) partials, only when the centroids are split
+    part_arg = torch.empty((chunks * n if chunks > 1 else 0,), dtype=torch.int32, device=device)
+    part_min = torch.empty((chunks * n if chunks > 1 else 0,), dtype=torch.float32, device=device)
     lib = _build.load("kmeans_assign")
     with torch.cuda.device(device):
         err = lib.kmeans_assign_f32(
-            x.data_ptr(), cents.data_ptr(), x2.data_ptr(), c2.data_ptr(),
-            arg.data_ptr(), mind.data_ptr(), n, k, d,
+            x.data_ptr(), cents.data_ptr(), part_arg.data_ptr(), part_min.data_ptr(),
+            arg.data_ptr(), mind.data_ptr(), n, k, d, chunks, chunk_cols,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "kmeans_assign")

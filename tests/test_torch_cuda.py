@@ -59,6 +59,61 @@ def test_kmeans_assign_kernel_matches_plain(card, shape):
     kmeans_ops.oracle_check(x, c, kmeans_ops.assign_nearest_cuda(x, c), kmeans_ops.assign_nearest_plain(x, c))
 
 
+def test_kmeans_assign_rows_do_not_depend_on_the_call(card):
+    """1024 rows (centroids split into chunks) give, for their first 512,
+    the bits that 512 rows alone give (another chunk count)."""
+    g = torch.Generator(device=card).manual_seed(5)
+    x, c = _randn(g, 1024, 768, device=card), _randn(g, 4096, 768, device=card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert kmeans_ops.plan(512, 4096, sms) != kmeans_ops.plan(1024, 4096, sms)
+    arg, mind = kmeans_ops.assign_nearest_cuda(x, c)
+    arg_h, mind_h = kmeans_ops.assign_nearest_cuda(x[:512].contiguous(), c)
+    assert torch.equal(arg[:512], arg_h) and torch.equal(mind[:512], mind_h)
+
+
+@pytest.mark.parametrize("n", [1024, 16384])
+def test_kmeans_assign_ties_keep_the_lower_index(card, n):
+    """Centroids duplicated across chunk boundaries: rows at or next to
+    them get the lower index, as torch.argmin does."""
+    g = torch.Generator(device=card).manual_seed(6)
+    c = _randn(g, 4096, 64, device=card)
+    c[2053] = c[5]
+    c[4095] = c[0]
+    lower = torch.tensor([5, 0], device=card).repeat(n // 2)
+    x = c[lower] + 1e-3 * (torch.arange(n, device=card) % 4 >= 2).float()[:, None] * _randn(g, n, 64, device=card)
+    arg, _ = kmeans_ops.assign_nearest_cuda(x, c)
+    assert torch.equal(arg.long(), lower)
+
+
+def test_pairwise_row_route_matches_plain(card):
+    """Serving's query shape, x ≠ y, takes the row route and holds K3's
+    bound at D = 768."""
+    g = torch.Generator(device=card).manual_seed(7)
+    x, y = _randn(g, 64, 1, 768, device=card), _randn(g, 64, 305, 768, device=card)
+    assert pairwise_ops.route(64, 1, 305, 768) == "row"
+    got = pairwise_ops.pairwise_dist2_cuda(x, y)
+    assert bool(torch.all((got - pairwise_ops.pairwise_dist2_plain(x, y)).abs() <= pairwise_ops.allowed_error(x, y)))
+
+
+@pytest.mark.parametrize("d,offset", [(33, 33), (64, 1)])
+def test_kernels_take_unaligned_rows(card, d, offset):
+    """Inputs whose base pointer is not 16-byte aligned (offset by one
+    d = 33 row, or by one float at d = 64) take the 4-byte cp.async copies
+    of the tile and the scalar walk of the row route."""
+    g = torch.Generator(device=card).manual_seed(8)
+
+    def shifted(*shape):
+        flat = _randn(g, int(np.prod(shape)) + offset, device=card)
+        return flat[offset:].view(*shape)
+
+    x, c = shifted(300, d), shifted(200, d)
+    assert x.data_ptr() % 16 != 0
+    kmeans_ops.oracle_check(x, c, kmeans_ops.assign_nearest_cuda(x, c), kmeans_ops.assign_nearest_plain(x, c))
+    for xs, ys in ((x[:100], c[:60]), (shifted(4, 2, d), shifted(4, 70, d))):
+        torch.testing.assert_close(pairwise_ops.pairwise_dist2_cuda(xs, ys), pairwise_ops.pairwise_dist2_plain(xs, ys),
+                                   rtol=pairwise_ops.SPEC_TOL[0], atol=pairwise_ops.SPEC_TOL[1])
+
+
 @pytest.mark.parametrize("shape", [(100, 5, 4, 33, 2), (64, 3, 8, 100, 3)])
 def test_nomad_step_kernels_match_plain(card, shape):
     B, k, S, K, d = shape
