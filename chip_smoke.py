@@ -34,6 +34,7 @@ are written to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -77,15 +78,35 @@ def main_config():
     return PUBMED.replace(n_points=MAIN_N, n_epochs=MAIN_EPOCHS)
 
 
-def bound_ms(flops: float, nbytes: float, tensor_cores: bool = False):
-    """The least time for the work: the larger of its operations at the
+SFU_PER_CLOCK = 16  # reciprocals (and logs) an SM issues a clock on its special-function units
+
+
+@functools.lru_cache(maxsize=None)
+def sfu_rate() -> float:
+    """SFU operations a second of the whole card: SMs × 16 a clock × the
+    card's top SM clock (nvidia-smi's clocks.max.sm)."""
+    import torch
+
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0]
+    return torch.cuda.get_device_properties(0).multi_processor_count * SFU_PER_CLOCK * float(mhz) * 1e6
+
+
+def bound_ms(flops: float, nbytes: float, tensor_cores: bool = False, sfu: float = 0.0):
+    """The least time for the work: the largest of its operations at the
     card's peak and its bytes at the memory rate. ``tensor_cores``: the
     operations are the 3xTF32 tile's, three TF32 passes at the tensor-core
-    rate; otherwise fp32 on CUDA cores."""
+    rate; otherwise fp32 on CUDA cores. ``sfu``: reciprocals and logs on
+    the special-function units (:func:`sfu_rate`), which run beside the
+    CUDA cores, so they bound the operations' time where they take longer."""
     if tensor_cores:
         t_ops = TF32X3_PASSES * flops / PEAK_TF32_FLOPS * 1e3
     else:
         t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    if sfu:
+        t_ops = max(t_ops, sfu / sfu_rate() * 1e3)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -197,12 +218,19 @@ def check_nomad_step(device, shapes, main_shape):
     fwd_flops = B * (K * (3 * d + 4) + (k + S) * (3 * d + 12))
     in_words = B * d + B * k * d + B * k + B * S * d + B * S + K * d + K + B
     bwd_flops = B * (K * (5 * d + 4) + (k + S) * (8 * d + 8))
+    fwd_bytes, bwd_bytes = 4.0 * (in_words + 2 * B), 4.0 * (in_words + 2 * B + B * d + B * k * d + B * S * d)
+    # SFU work as csrc/nomad_step.cu takes it: a reciprocal for each mean but
+    # the own cell and each negative; per positive a reciprocal, logf and
+    # log1pf (forward) or three divisions (backward)
+    sfu = B * (K - 1) + B * S + 3 * B * k
     timing = {
         "nomad_step_fwd": {
             "ms": time_ms(lambda: ops.nomad_step_fwd_cuda(*args), reps=50),
             "device_ms": device_ms(lambda: ops.nomad_step_fwd_cuda(*args)),
             "plain_ms": time_ms(lambda: ops.nomad_step_fwd_plain(*args)),
-            "bound": bound_ms(fwd_flops, 4.0 * (in_words + 2 * B)),
+            "bound": bound_ms(fwd_flops, fwd_bytes, sfu=sfu),
+            "bound_no_sfu": bound_ms(fwd_flops, fwd_bytes),
+            "sfu_ops": sfu,
             "library_ms": None,
             "max_abs_err": max(max(r["max_abs_err"]["loss"], r["max_abs_err"]["m"]) for r in rows),
         },
@@ -210,7 +238,9 @@ def check_nomad_step(device, shapes, main_shape):
             "ms": time_ms(lambda: ops.nomad_step_bwd_cuda(*args, m, gbar), reps=50),
             "device_ms": device_ms(lambda: ops.nomad_step_bwd_cuda(*args, m, gbar)),
             "plain_ms": time_ms(lambda: ops.nomad_step_bwd_plain(*args, m, gbar)),
-            "bound": bound_ms(bwd_flops, 4.0 * (in_words + 2 * B + B * d + B * k * d + B * S * d)),
+            "bound": bound_ms(bwd_flops, bwd_bytes, sfu=sfu),
+            "bound_no_sfu": bound_ms(bwd_flops, bwd_bytes),
+            "sfu_ops": sfu,
             "library_ms": None,
             "max_abs_err": max(max(r["max_abs_err"][g] for g in ("g_i", "g_pos", "g_neg")) for r in rows),
         },
@@ -399,7 +429,11 @@ def _check_pair(name, outs, tol, scaled):
 def check_cauchy_mean(device, shapes, main_shape):
     """K4 forward and backward against the plain versions at the JAX spec's
     check shapes, (rtol, atol) = (1e-5, 1e-6), and at the serving shape
-    (B 1024 against K 4096 means) with atol scaled by the largest output."""
+    (B 1024 against K 4096 means) with atol scaled by the largest output.
+    At the serving shape also: rows [0, B/2) of the call bit-equal to a
+    B/2-head call (the K split follows K alone), and heads whose own cell
+    is a chunk's first or last mean (each head 0.1 from it, so a term
+    wrongly kept or dropped would show) against the plain versions."""
     import torch
 
     from repro_torch.kernels.cauchy_mean import ops
@@ -412,34 +446,53 @@ def check_cauchy_mean(device, shapes, main_shape):
                 torch.randint(0, K, (B,), generator=g, device=device, dtype=torch.int32),
                 torch.rand(B, generator=g, device=device))
 
+    def pair(th, mu, w, own, gbar):
+        return {"s": (ops.cauchy_mean_fwd_cuda(th, mu, w, own), ops.cauchy_mean_fwd_plain(th, mu, w, own)),
+                "g_theta": (ops.cauchy_mean_bwd_cuda(th, mu, w, own, gbar),
+                            ops.cauchy_mean_bwd_plain(th, mu, w, own, gbar))}
+
     rows = []
     for shape in list(shapes) + [main_shape]:
-        *args, gbar = inputs(*shape, seed=sum(shape))
-        outs = {"s": (ops.cauchy_mean_fwd_cuda(*args), ops.cauchy_mean_fwd_plain(*args)),
-                "g_theta": (ops.cauchy_mean_bwd_cuda(*args, gbar), ops.cauchy_mean_bwd_plain(*args, gbar))}
+        outs = pair(*inputs(*shape, seed=sum(shape)))
         torch.cuda.synchronize()
-        rows.append({"shape": shape, "max_abs_err": _check_pair("cauchy_mean", outs, ops.TOL, shape == main_shape),
-                     "ok": True})
+        rows.append({"shape": shape, "plan": ops.plan(shape[1]),
+                     "max_abs_err": _check_pair("cauchy_mean", outs, ops.TOL, shape == main_shape), "ok": True})
+
     B, K, d = main_shape
+    chunks, chunk_len = ops.plan(K)
+    th, mu, w, own, gbar = inputs(B, K, d, seed=5)
+    h = B // 2
+    half = (th[:h].contiguous(), mu, w, own[:h].contiguous())
+    if not (torch.equal(ops.cauchy_mean_fwd_cuda(th, mu, w, own)[:h], ops.cauchy_mean_fwd_cuda(*half))
+            and torch.equal(ops.cauchy_mean_bwd_cuda(th, mu, w, own, gbar)[:h],
+                            ops.cauchy_mean_bwd_cuda(*half, gbar[:h].contiguous()))):
+        raise AssertionError(f"cauchy_mean: rows of a {h}-head call differ from the same rows of a {B}-head call")
+    edges = torch.tensor([0, chunk_len - 1, chunk_len, K - 1], device=device, dtype=torch.int32)
+    own_e = edges.repeat(B // 4)
+    th_e = mu[own_e.long()] + 0.1 * torch.randn(B, d, generator=_gen(device, 6), device=device)
+    edge_errs = _check_pair("cauchy_mean (own at chunk boundaries)", pair(th_e, mu, w, own_e, gbar), ops.TOL, True)
+    rows.append({"batch_invariance": (h, B), "bit_equal": True, "ok": True})
+    rows.append({"own_at_chunk_boundaries": edges.tolist(), "max_abs_err": edge_errs, "ok": True})
+
     *args, gbar = inputs(B, K, d, seed=3)
     in_bytes = 4.0 * (B * d + K * d + K + B)
+    launch = {"chunks": chunks, "chunk_len": chunk_len, "cluster": (1, chunks, 1),
+              "blocks": chunks * -(-B // ops.HEADS), "threads": ops.THREADS, "heads_per_block": ops.HEADS}
+    sfu = B * K  # one reciprocal a pair
+
+    def timed(fn, plain, flops, nbytes, err):
+        return {"shape": main_shape, "plan": launch,
+                "ms": time_ms(fn, reps=50), "device_ms": device_ms(fn), "plain_ms": time_ms(plain),
+                "bound": bound_ms(flops, nbytes, sfu=sfu), "bound_no_sfu": bound_ms(flops, nbytes),
+                "sfu_ops": sfu, "library_ms": None, "max_abs_err": err}
+
+    errs = [r["max_abs_err"] for r in rows if "shape" in r] + [edge_errs]
     timing = {
-        "cauchy_mean_fwd": {
-            "ms": time_ms(lambda: ops.cauchy_mean_fwd_cuda(*args), reps=50),
-            "device_ms": device_ms(lambda: ops.cauchy_mean_fwd_cuda(*args)),
-            "plain_ms": time_ms(lambda: ops.cauchy_mean_fwd_plain(*args)),
-            "bound": bound_ms(B * K * (3.0 * d + 4), in_bytes + 4.0 * B),
-            "library_ms": None,
-            "max_abs_err": max(r["max_abs_err"]["s"] for r in rows),
-        },
-        "cauchy_mean_bwd": {
-            "ms": time_ms(lambda: ops.cauchy_mean_bwd_cuda(*args, gbar), reps=50),
-            "device_ms": device_ms(lambda: ops.cauchy_mean_bwd_cuda(*args, gbar)),
-            "plain_ms": time_ms(lambda: ops.cauchy_mean_bwd_plain(*args, gbar)),
-            "bound": bound_ms(B * K * (5.0 * d + 4), in_bytes + 4.0 * B * (1 + d)),
-            "library_ms": None,
-            "max_abs_err": max(r["max_abs_err"]["g_theta"] for r in rows),
-        },
+        "cauchy_mean_fwd": timed(lambda: ops.cauchy_mean_fwd_cuda(*args), lambda: ops.cauchy_mean_fwd_plain(*args),
+                                 B * K * (3.0 * d + 4), in_bytes + 4.0 * B, max(e["s"] for e in errs)),
+        "cauchy_mean_bwd": timed(lambda: ops.cauchy_mean_bwd_cuda(*args, gbar),
+                                 lambda: ops.cauchy_mean_bwd_plain(*args, gbar),
+                                 B * K * (5.0 * d + 4), in_bytes + 4.0 * B * (1 + d), max(e["g_theta"] for e in errs)),
     }
     return rows, timing
 
@@ -472,12 +525,17 @@ def check_frozen_attract(device, shapes, main_shape):
     B, k, d = main_shape
     *args, gbar = inputs(B, k, d, seed=4)
     in_bytes = 4.0 * (B * d + B * k * d + B * k + B)
+    # SFU work as csrc/frozen_attract.cu takes it, per neighbour: a
+    # reciprocal, logf and log1pf (forward) or three divisions (backward)
+    sfu = 3 * B * k
     timing = {
         "frozen_attract_fwd": {
             "ms": time_ms(lambda: ops.frozen_attract_fwd_cuda(*args), reps=50),
             "device_ms": device_ms(lambda: ops.frozen_attract_fwd_cuda(*args)),
             "plain_ms": time_ms(lambda: ops.frozen_attract_fwd_plain(*args)),
-            "bound": bound_ms(B * k * (3.0 * d + 12), in_bytes + 4.0 * B),
+            "bound": bound_ms(B * k * (3.0 * d + 12), in_bytes + 4.0 * B, sfu=sfu),
+            "bound_no_sfu": bound_ms(B * k * (3.0 * d + 12), in_bytes + 4.0 * B),
+            "sfu_ops": sfu,
             "library_ms": None,
             "max_abs_err": max(r["max_abs_err"]["loss"] for r in rows),
         },
@@ -485,7 +543,9 @@ def check_frozen_attract(device, shapes, main_shape):
             "ms": time_ms(lambda: ops.frozen_attract_bwd_cuda(*args, gbar), reps=50),
             "device_ms": device_ms(lambda: ops.frozen_attract_bwd_cuda(*args, gbar)),
             "plain_ms": time_ms(lambda: ops.frozen_attract_bwd_plain(*args, gbar)),
-            "bound": bound_ms(B * k * (5.0 * d + 9), in_bytes + 4.0 * B * (2 + d)),
+            "bound": bound_ms(B * k * (5.0 * d + 9), in_bytes + 4.0 * B * (2 + d), sfu=sfu),
+            "bound_no_sfu": bound_ms(B * k * (5.0 * d + 9), in_bytes + 4.0 * B * (2 + d)),
+            "sfu_ops": sfu,
             "library_ms": None,
             "max_abs_err": max(max(r["max_abs_err"]["g_theta"], r["max_abs_err"]["g_m"]) for r in rows),
         },
@@ -619,7 +679,7 @@ def epoch_profile(device, cfg, res):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     return {
         "steps": cfg.resolved_steps_per_epoch(),
         "wall_ms": wall_ms,
@@ -695,7 +755,7 @@ def batch_profile(device, server, q):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     return {
         "rows": B,
         "steps": server.steps,
@@ -945,7 +1005,11 @@ def main() -> int:
             "library_call": t.get("library_call"),
             # the fp32 CUDA-core bound, comparable with the earlier slices' rows
             "bound_fp32_ms": t.get("bound_fp32", t["bound"])[0],
+            # the bound without the SFU term, as the earlier slices took it
+            "bound_no_sfu_ms": t.get("bound_no_sfu", t["bound"])[0],
         })
+        if "plan" in t:  # K4's split of the means and its launch
+            kernels[-1]["plan"] = t["plan"]
         if name in ("kmeans_assign", "pairwise"):  # each timed shape: route, block tile, times
             kernels[-1]["shapes"] = {label: {f: v for f, v in tt.items() if f != "max_abs_err"}
                                      for label, tt in timing.items() if label.split("[")[0] == name}

@@ -42,8 +42,8 @@ SIGNATURES = {
         "nomad_step_bwd_f32": [_V] * 13 + [_I] * 5 + [_V],
     },
     "cauchy_mean": {
-        "cauchy_mean_fwd_f32": [_V] * 5 + [_I] * 3 + [_V],
-        "cauchy_mean_bwd_f32": [_V] * 6 + [_I] * 3 + [_V],
+        "cauchy_mean_fwd_f32": [_V] * 5 + [_I] * 5 + [_V],
+        "cauchy_mean_bwd_f32": [_V] * 6 + [_I] * 5 + [_V],
     },
     "frozen_attract": {
         "frozen_attract_fwd_f32": [_V] * 5 + [_I] * 3 + [_V],

@@ -12,10 +12,14 @@ custom VJP (``ops.py:_build_op``), hand-written for Hopper in
 gradient reaches θ only, as the JAX VJP's does (the means are refreshed,
 never learned). The serving step's M̃ term runs through it.
 
-Bound on the card: d = 2, so B·K Cauchy terms on CUDA cores (about 42
-MFLOP at the serving shape B 1024, K 4096, under a microsecond of the fp32
-rate): launch latency holds each call. One warp per head walks all K means
-from shared memory, so the sum has one fixed order per head.
+Bound on the card: d = 2, so B·K Cauchy terms: about 42 MFLOP on the CUDA
+cores and B·K reciprocals on the SFU at the serving shape (B 1024, K 4096),
+a microsecond of the card's rates. The kernel's grid is (head tile, K
+chunk): :func:`plan` cuts the K means into at most ``MAX_CLUSTER``
+contiguous chunks, from K alone, and the chunks of one head tile form a
+thread-block cluster whose rank 0 sums their partials in ascending order.
+So every head's sum is taken in one order whatever B is, and a head gives
+the same bits in a batch of 512 as in one of 1024.
 """
 
 from __future__ import annotations
@@ -26,6 +30,25 @@ from repro_torch.kernels import _build, registry
 
 TOL = (1e-5, 1e-6)  # the JAX spec's (rtol, atol)
 MAX_D = 4  # out dims the CUDA kernel is instantiated for
+# csrc/cauchy_mean.cu's constants
+TILE = 512  # means of a chunk, up to K = TILE·MAX_CLUSTER; staged at a time
+MAX_CLUSTER = 8  # chunks of one head tile: the portable cluster size
+HEADS = 16  # heads of one block
+THREADS = 128
+
+
+def plan(K: int) -> tuple[int, int]:
+    """(chunks, chunk_len): the K means cut into ``chunks`` contiguous
+    chunks of ``chunk_len`` (a multiple of 32; the last chunk may be short,
+    none is empty). One chunk of up to TILE means per block, up to
+    MAX_CLUSTER chunks, longer chunks beyond. It depends on K alone, never
+    on B or on the card, because the chunks fix the order of each head's
+    sum."""
+    if K < 1:
+        raise ValueError(f"plan: K={K} < 1")
+    chunks = min(MAX_CLUSTER, -(-K // TILE))
+    chunk_len = 32 * -(-K // (32 * chunks))
+    return -(-K // chunk_len), chunk_len
 
 
 def cauchy_mean_fwd_plain(th, mu, w, own):
@@ -72,7 +95,7 @@ def cauchy_mean_fwd_cuda(th, mu, w, own):
     with torch.cuda.device(device):
         err = lib.cauchy_mean_fwd_f32(
             th.data_ptr(), mu.data_ptr(), w.data_ptr(), own.data_ptr(), out.data_ptr(),
-            B, K, d, torch.cuda.current_stream(device).cuda_stream,
+            B, K, d, *plan(K), torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "cauchy_mean_fwd")
     FWD.launches += 1
@@ -86,7 +109,7 @@ def cauchy_mean_bwd_cuda(th, mu, w, own, gbar):
     with torch.cuda.device(device):
         err = lib.cauchy_mean_bwd_f32(
             th.data_ptr(), mu.data_ptr(), w.data_ptr(), own.data_ptr(), gbar.data_ptr(),
-            gth.data_ptr(), B, K, d, torch.cuda.current_stream(device).cuda_stream,
+            gth.data_ptr(), B, K, d, *plan(K), torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "cauchy_mean_bwd")
     BWD.launches += 1

@@ -147,18 +147,59 @@ def test_fit_on_card_is_deterministic_and_uses_the_kernels(card):
     np.testing.assert_array_equal(r1.embedding, r2.embedding)
 
 
-@pytest.mark.parametrize("shape", [(100, 64, 2), (64, 100, 3)])
+def _cauchy_args(g, B, K, d, device):
+    """θ, μ, w, own and ḡ as the JAX spec draws them."""
+    return (_randn(g, B, d, device=device, scale=3.0), _randn(g, K, d, device=device, scale=3.0),
+            torch.rand((K,), generator=g, device=device),
+            torch.randint(0, K, (B,), generator=g, device=device, dtype=torch.int32),
+            torch.rand((B,), generator=g, device=device))
+
+
+def _assert_cauchy_close(got, want, K):
+    """The spec's (1e-5, 1e-6). Past the spec's largest K (1024), atol is
+    scaled by the output's largest magnitude, as chip_smoke.py holds the
+    serving shape: a sum over K = 4096 signed terms rounds with the summed
+    magnitudes, not with the cancelled result."""
+    atol = cauchy_ops.TOL[1] * (float(want.abs().max()) if K > 1024 else 1.0)
+    torch.testing.assert_close(got, want, rtol=cauchy_ops.TOL[0], atol=atol)
+
+
+@pytest.mark.parametrize("shape", [(100, 64, 2), (64, 100, 3), (777, 333, 2), (1024, 4096, 2)])
 def test_cauchy_mean_kernels_match_plain(card, shape):
-    B, K, d = shape
+    """The spec's ragged shapes (one chunk) and serving's (8 chunks, one
+    cluster)."""
+    K = shape[1]
     g = torch.Generator(device=card).manual_seed(3)
-    args = (_randn(g, B, d, device=card, scale=3.0), _randn(g, K, d, device=card, scale=3.0),
-            torch.rand((K,), generator=g, device=card),
-            torch.randint(0, K, (B,), generator=g, device=card, dtype=torch.int32))
-    gbar = torch.rand((B,), generator=g, device=card)
-    tol = dict(rtol=cauchy_ops.TOL[0], atol=cauchy_ops.TOL[1])
-    torch.testing.assert_close(cauchy_ops.cauchy_mean_fwd_cuda(*args), cauchy_ops.cauchy_mean_fwd_plain(*args), **tol)
-    torch.testing.assert_close(cauchy_ops.cauchy_mean_bwd_cuda(*args, gbar),
-                               cauchy_ops.cauchy_mean_bwd_plain(*args, gbar), **tol)
+    *args, gbar = _cauchy_args(g, *shape, card)
+    _assert_cauchy_close(cauchy_ops.cauchy_mean_fwd_cuda(*args), cauchy_ops.cauchy_mean_fwd_plain(*args), K)
+    _assert_cauchy_close(cauchy_ops.cauchy_mean_bwd_cuda(*args, gbar), cauchy_ops.cauchy_mean_bwd_plain(*args, gbar), K)
+
+
+def test_cauchy_mean_rows_do_not_depend_on_the_batch(card):
+    """Rows [0, 512) of a 1024-head call are the bits of a 512-head call,
+    forward and backward: the K split follows K alone."""
+    g = torch.Generator(device=card).manual_seed(9)
+    th, mu, w, own, gbar = _cauchy_args(g, 1024, 4096, 2, card)
+    half = (th[:512].contiguous(), mu, w, own[:512].contiguous())
+    assert torch.equal(cauchy_ops.cauchy_mean_fwd_cuda(th, mu, w, own)[:512], cauchy_ops.cauchy_mean_fwd_cuda(*half))
+    assert torch.equal(cauchy_ops.cauchy_mean_bwd_cuda(th, mu, w, own, gbar)[:512],
+                       cauchy_ops.cauchy_mean_bwd_cuda(*half, gbar[:512].contiguous()))
+
+
+def test_cauchy_mean_own_at_chunk_boundaries(card):
+    """Heads whose own cell is the first or last mean of a chunk, or of K,
+    drop exactly that term. Each head sits 0.1 from its own mean, so a term
+    kept or dropped in error (q ≈ 1) would be far outside the tolerance."""
+    K = 4096
+    _, chunk_len = cauchy_ops.plan(K)
+    g = torch.Generator(device=card).manual_seed(10)
+    _, mu, w, _, gbar = _cauchy_args(g, 1024, K, 2, card)
+    edges = torch.tensor([0, chunk_len - 1, chunk_len, K - 1], device=card, dtype=torch.int32)
+    own = edges.repeat(1024 // 4)
+    th = mu[own.long()] + _randn(g, 1024, 2, device=card, scale=0.1)
+    _assert_cauchy_close(cauchy_ops.cauchy_mean_fwd_cuda(th, mu, w, own), cauchy_ops.cauchy_mean_fwd_plain(th, mu, w, own), K)
+    _assert_cauchy_close(cauchy_ops.cauchy_mean_bwd_cuda(th, mu, w, own, gbar),
+                         cauchy_ops.cauchy_mean_bwd_plain(th, mu, w, own, gbar), K)
 
 
 @pytest.mark.parametrize("shape", [(64, 8, 2), (100, 5, 3)])

@@ -1,27 +1,36 @@
 #!/usr/bin/env python3
-"""Variants of the K2/K3 tensor-core tile, checked and timed on one card.
+"""Variants of a hand-written kernel, checked and timed on one card.
 
-    python3 tile_variants.py
+    python3 tile_variants.py          # the K2/K3 tensor-core tile
+    python3 tile_variants.py cauchy   # K4 cauchy_mean
+    python3 tile_variants.py cauchy base no_math   # named variants only
 
-Each variant is one source edit of ``src/repro_torch/csrc/tf32x3_tile.cuh``
-(the committed tile is ``base``), built with the port's nvcc flags into
-``build/tile_variants/<name>/`` and loaded in place of the committed
-kernels. For each variant, in two rounds (forward order, then reversed, so
-drift of the card's clock shows as a difference between rounds):
+Each variant is one source edit of a kernel source (the committed source
+is ``base``), built with the port's nvcc flags into
+``build/tile_variants/<source>/<name>/`` and loaded in place of the
+committed kernels. For each variant, in two rounds (forward order, then
+reversed, so drift of the card's clock shows as a difference between
+rounds), device ms (torch.profiler, ``chip_smoke.device_ms``) and errors.
 
-* device ms (torch.profiler, ``chip_smoke.device_ms``) of K2 at the fit's
-  16384×4096×768 and serving's 1024×4096×768, and of K3 at the candidate
-  16384×4096×768 and the in-cell 256×305×305×768 shapes;
+``tile`` edits ``src/repro_torch/csrc/tf32x3_tile.cuh`` and measures:
+
+* K2 at the fit's 16384×4096×768 and serving's 1024×4096×768, and K3 at
+  the candidate 16384×4096×768 and the in-cell 256×305×305×768 shapes;
 * ``cell_share``: the largest |kernel − plain| / ``allowed_error`` of the
   in-cell batch (x = y, so the diagonal holds self-distances, d² ≈ 0);
 * ``copy_err``: the largest |kernel − plain| of K2's minimum distance on
   rows that are exact copies of a centroid (d² ≈ 0).
 
-Variants that change the arithmetic (``one_pass``, ``no_split``) are
-timings of what the three passes and the split cost, not candidates: their
-errors are printed, not checked. Writes ``tile_variants.json`` beside
-``chip_smoke.json`` and prints one JSON line per measurement. Runs only on
-a CUDA card.
+``cauchy`` edits ``src/repro_torch/csrc/cauchy_mean.cu`` and measures K4f
+and K4b at serving's B 1024 × K 4096 × d 2, with ``share``: the largest
+|kernel − plain| / (atol + rtol·|plain|) at chip_smoke's rule for that
+shape (atol scaled by the largest output).
+
+Variants that change the arithmetic or drop work (``one_pass``,
+``no_split``; ``empty``, ``no_math``, ``no_dsmem``) are timings of what the
+dropped part costs, not candidates: their errors are printed, not checked.
+Writes ``tile_variants[_<family>].json`` beside ``chip_smoke.json`` and
+prints one JSON line per measurement. Runs only on a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,7 +45,6 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
-TILE = "tf32x3_tile.cuh"
 ONE_STEP = """          mma_from_zero(p, as[mt], bb[nt]);
           mma(p, ab[mt], bs[nt]);
           mma(p, ab[mt], bb[nt]);
@@ -44,7 +52,7 @@ ONE_STEP = """          mma_from_zero(p, as[mt], bb[nt]);
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] += p[e];"""
 INT_ROUND = "  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
 # name -> [(old, new)] edits of the tile's source
-VARIANTS = {
+TILE_VARIANTS = {
     "base": [],
     # cvt.rna.tf32.f32 in place of the two integer ops
     "cvt": [(INT_ROUND, '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(v));\n  return r;\n')],
@@ -63,27 +71,63 @@ VARIANTS = {
                   "  big = small = __float_as_uint(v);")],
 }
 
+CAUCHY_LOOP = "    if (head0 >= B) continue;  // uniform over the warp\n"
+FULL_LOOP = "#pragma unroll\n      for (int j = 0; j < TILE / 32; ++j)"
+CAUCHY_VARIANTS = {
+    "base": [],
+    # the correctly rounded IEEE division in place of rcp.approx on the SFU
+    "ieee_div": [("const float q = rcp_sfu(s);", "const float q = 1.f / s;")],
+    # |θ − μ|² from 0, then 1 + it: one more add a pair
+    "add_one_after": [("float diff[D], s = 1.f;", "float diff[D], s = 0.f;"),
+                      ("const float q = rcp_sfu(s);", "const float q = rcp_sfu(1.f + s);")],
+    # the block's layout: 4 heads a warp and 4 warps (16 heads, 128 threads,
+    # 64 pairs a thread) are committed; 2 heads a warp and 8 warps, the loop
+    # unrolled by 4, was the first layout (256 threads, 32 pairs a thread)
+    "heads2_warps8": [("constexpr int HEADS_PER_WARP = 4;", "constexpr int HEADS_PER_WARP = 2;"),
+                      ("constexpr int WARPS = 4;", "constexpr int WARPS = 8;"),
+                      (FULL_LOOP, "#pragma unroll 4\n" + FULL_LOOP.split("\n", 1)[1])],
+    "heads2": [("constexpr int HEADS_PER_WARP = 4;", "constexpr int HEADS_PER_WARP = 2;")],  # 1024 blocks
+    "warps8": [("constexpr int WARPS = 4;", "constexpr int WARPS = 8;")],  # 256 blocks
+    "unroll4": [(FULL_LOOP, "#pragma unroll 4\n" + FULL_LOOP.split("\n", 1)[1])],
+    # probes: no reciprocal (q = 1 + |θ − μ|²); each block its own cluster
+    # (every result wrong: the cost of scheduling clusters of 8 blocks)
+    "no_rcp": [("const float q = rcp_sfu(s);", "const float q = s;")],
+    "no_cluster": [("attr[0].val.clusterDim.y = chunks;", "attr[0].val.clusterDim.y = 1;")],
+    # rank 0's blocks write the SM clocks they took, start to write, in
+    # place of s (k4f_max)
+    "clock": [("  cluster_arrive_relaxed();  // phase 1: this block has started\n",
+               "  cluster_arrive_relaxed();  // phase 1: this block has started\n  const long long clk0 = clock64();\n"),
+              ("        out[b] = s;", "        out[b] = static_cast<float>(clock64() - clk0);")],
+    # a cluster launch that returns at once; staging and the cluster
+    # reduction without the pairs; each block keeps its partials
+    "empty": [("  const int lane = threadIdx.x & 31;\n", "  if (B > 0) return;\n  const int lane = threadIdx.x & 31;\n")],
+    "no_math": [(CAUCHY_LOOP, "    continue;\n")],
+    "no_dsmem": [("cluster.map_shared_rank(part_s, 0)", "part_s")],
+}
 
-def build(names):
+
+
+def build(family, names):
     from repro_torch.kernels import _build
 
+    source, kernels, variants = family["source"], family["kernels"], family["variants"]
     procs, libs = {}, {}
     for name in names:
-        out_dir = os.path.join(ROOT, "build", "tile_variants", name)
+        out_dir = os.path.join(ROOT, "build", "tile_variants", family["source"].split(".")[0], name)
         shutil.rmtree(out_dir, ignore_errors=True)
         shutil.copytree(_build.CSRC, out_dir)
-        tile = os.path.join(out_dir, TILE)
-        with open(tile) as f:
+        path = os.path.join(out_dir, source)
+        with open(path) as f:
             src = f.read()
-        missing = [old for old, _ in VARIANTS[name] if old not in src]
+        missing = [old for old, _ in variants[name] if old not in src]
         if missing:
-            print(json.dumps({"variant": name, "skipped": "its edit no longer matches the tile"}), flush=True)
+            print(json.dumps({"variant": name, "skipped": f"its edit no longer matches {source}"}), flush=True)
             continue
-        for old, new in VARIANTS[name]:
+        for old, new in variants[name]:
             src = src.replace(old, new)
-        with open(tile, "w") as f:
+        with open(path, "w") as f:
             f.write(src)
-        for kernel in ("kmeans_assign", "pairwise"):
+        for kernel in kernels:
             lib = os.path.join(out_dir, f"lib{kernel}.so")
             cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib, os.path.join(out_dir, f"{kernel}.cu")]
             procs[(name, kernel)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
@@ -109,20 +153,14 @@ def use(paths):
         _build._LOADED[kernel] = lib
 
 
-def main() -> int:
+def tile_probe(device):
+    """Inputs once; returns the measurement of the loaded variant."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("tile_variants: no CUDA device; this script runs only on the card", file=sys.stderr)
-        return 1
     import chip_smoke
     from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
     from repro_torch.kernels.pairwise import ops as pairwise_ops
 
-    device = torch.device("cuda", 0)
-    card = chip_smoke.card_line()
-    print(json.dumps({"card": card}), flush=True)
-    libs = build(list(VARIANTS))
     g = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(16384, 768, generator=g, device=device)
     c = torch.randn(4096, 768, generator=g, device=device)
@@ -133,30 +171,98 @@ def main() -> int:
     cell_bound = pairwise_ops.allowed_error(cell, cell)
     copy_want = kmeans_ops.assign_nearest_plain(copies, c)[1]
 
+    def measure():
+        cell_got = pairwise_ops.pairwise_dist2_cuda(cell, cell)
+        copy_got = kmeans_ops.assign_nearest_cuda(copies, c)[1]
+        torch.cuda.synchronize()
+        return {
+            "k2_ms": chip_smoke.device_ms(lambda: kmeans_ops.assign_nearest_cuda(x, c)),
+            "k2_serve_ms": chip_smoke.device_ms(lambda: kmeans_ops.assign_nearest_cuda(xs, c)),
+            "k3_cand_ms": chip_smoke.device_ms(lambda: pairwise_ops.pairwise_dist2_cuda(x, c)),
+            "k3_cell_ms": chip_smoke.device_ms(lambda: pairwise_ops.pairwise_dist2_cuda(cell, cell)),
+            "cell_share": float(((cell_got - cell_want).abs() / cell_bound).max()),
+            "copy_err": float((copy_got - copy_want).abs().max()),
+        }
+
+    return measure
+
+
+def cauchy_probe(device):
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.cauchy_mean import ops
+
+    B, K, d = chip_smoke.CAUCHY_SERVE
+    g = torch.Generator(device=device).manual_seed(0)
+    th = torch.randn(B, d, generator=g, device=device) * 3.0
+    mu = torch.randn(K, d, generator=g, device=device) * 3.0
+    w = torch.rand(K, generator=g, device=device)
+    own = torch.randint(0, K, (B,), generator=g, device=device, dtype=torch.int32)
+    gbar = torch.rand(B, generator=g, device=device)
+    want_s = ops.cauchy_mean_fwd_plain(th, mu, w, own)
+    want_g = ops.cauchy_mean_bwd_plain(th, mu, w, own, gbar)
+
+    def share(got, want):
+        rtol, atol = ops.TOL
+        return float(((got - want).abs() / (atol * want.abs().max() + rtol * want.abs())).max())
+
+    th2, own2 = th.repeat(2, 1), own.repeat(2)
+
+    def measure():
+        s = ops.cauchy_mean_fwd_cuda(th, mu, w, own)
+        gt = ops.cauchy_mean_bwd_cuda(th, mu, w, own, gbar)
+        torch.cuda.synchronize()
+        return {
+            "k4f_ms": chip_smoke.device_ms(lambda: ops.cauchy_mean_fwd_cuda(th, mu, w, own)),
+            "k4b_ms": chip_smoke.device_ms(lambda: ops.cauchy_mean_bwd_cuda(th, mu, w, own, gbar)),
+            # K4f at half and twice the heads: how the time scales with the work
+            "k4f_half_ms": chip_smoke.device_ms(lambda: ops.cauchy_mean_fwd_cuda(th[: B // 2], mu, w, own[: B // 2])),
+            "k4f_double_ms": chip_smoke.device_ms(lambda: ops.cauchy_mean_fwd_cuda(th2, mu, w, own2)),
+            "k4f_max": float(s.max()),
+            "k4f_share": share(s, want_s),
+            "k4b_share": share(gt, want_g),
+        }
+
+    return measure
+
+
+FAMILIES = {
+    "tile": {"source": "tf32x3_tile.cuh", "kernels": ("kmeans_assign", "pairwise"),
+             "variants": TILE_VARIANTS, "probe": tile_probe, "out": "tile_variants.json"},
+    "cauchy": {"source": "cauchy_mean.cu", "kernels": ("cauchy_mean",),
+               "variants": CAUCHY_VARIANTS, "probe": cauchy_probe, "out": "tile_variants_cauchy.json"},
+}
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("tile_variants: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 1
+    import chip_smoke
+
+    family = FAMILIES[argv[0] if argv else "tile"]
+    names = argv[1:] or list(family["variants"])
+    device = torch.device("cuda", 0)
+    card = chip_smoke.card_line()
+    print(json.dumps({"card": card}), flush=True)
+    libs = build(family, names)
+    measure = family["probe"](device)
     rounds = []
-    order = [n for n in VARIANTS if n in libs]
-    for names in (order, order[::-1]):
-        for name in names:
+    order = [n for n in names if n in libs]
+    for turn in (order, order[::-1]):
+        for name in turn:
             use(libs[name])
-            cell_got = pairwise_ops.pairwise_dist2_cuda(cell, cell)
-            copy_got = kmeans_ops.assign_nearest_cuda(copies, c)[1]
-            torch.cuda.synchronize()
-            row = {
-                "variant": name,
-                "k2_ms": chip_smoke.device_ms(lambda: kmeans_ops.assign_nearest_cuda(x, c)),
-                "k2_serve_ms": chip_smoke.device_ms(lambda: kmeans_ops.assign_nearest_cuda(xs, c)),
-                "k3_cand_ms": chip_smoke.device_ms(lambda: pairwise_ops.pairwise_dist2_cuda(x, c)),
-                "k3_cell_ms": chip_smoke.device_ms(lambda: pairwise_ops.pairwise_dist2_cuda(cell, cell)),
-                "cell_share": float(((cell_got - cell_want).abs() / cell_bound).max()),
-                "copy_err": float((copy_got - copy_want).abs().max()),
-            }
+            row = {"variant": name, **measure()}
             rounds.append(row)
             print(json.dumps(row), flush=True)
     os.makedirs(chip_smoke.OUT_DIR, exist_ok=True)
-    with open(os.path.join(chip_smoke.OUT_DIR, "tile_variants.json"), "w") as f:
+    with open(os.path.join(chip_smoke.OUT_DIR, family["out"]), "w") as f:
         json.dump({"card": card, "rounds": rounds}, f, indent=1)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
