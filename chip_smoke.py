@@ -178,6 +178,22 @@ def _close(got, want, rtol, atol) -> bool:
     return bool(torch.all((got - want).abs() <= atol + rtol * want.abs()))
 
 
+def _check_pair(name, outs, tol, scaled):
+    """Every (kernel, plain) output pair within (rtol, atol); with
+    ``scaled`` atol is tol[1] times the output's largest magnitude (a sum
+    over K = 4096 terms rounds with the summed magnitudes, not the result)."""
+    import torch
+
+    errs, ok = {}, True
+    for label, (g, w) in outs.items():
+        atol = tol[1] * float(w.abs().max()) if scaled else tol[1]
+        errs[label] = _max_err(g, w)
+        ok &= bool(torch.isfinite(g).all()) and _close(g, w, tol[0], atol)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version: {errs}")
+    return errs
+
+
 def check_nomad_step(device, shapes, main_shape):
     """K1 forward and backward against the plain versions.
 
@@ -185,66 +201,80 @@ def check_nomad_step(device, shapes, main_shape):
     batch mean's cotangent, as on the main path). Main shape: every output
     is a sum over K = 4096 signed terms whose rounding error scales with
     the summed magnitudes, not the (cancelled) result, so atol is 2e-5 of
-    the output's largest magnitude there.
+    the output's largest magnitude there. At every shape the forward
+    without far (no gradient wanted) gives the same loss and m bits as the
+    forward with it. At the main shape also: rows [0, B/2) of the call
+    bit-equal to a B/2-head call (the K split follows K alone).
     """
     import torch
 
     from repro_torch.kernels.nomad_step import ops
+
+    def pair(args, gbar):
+        fwd = ops.nomad_step_fwd_cuda(*args, want_far=True)
+        fwd_p = ops.nomad_step_fwd_plain(*args, want_far=True)
+        loss_n, m_n, _ = ops.nomad_step_fwd_cuda(*args)
+        if not (torch.equal(loss_n, fwd[0]) and torch.equal(m_n, fwd[1])):
+            raise AssertionError("nomad_step_fwd without far differs from the forward with far")
+        grads = ops.nomad_step_bwd_cuda(*args[:5], fwd[1], fwd[2], gbar)
+        grads_p = ops.nomad_step_bwd_plain(*args[:5], fwd_p[1], fwd_p[2], gbar)
+        torch.cuda.synchronize()
+        return dict(zip(("loss", "m", "far", "g_i", "g_pos", "g_neg"), zip((*fwd, *grads), (*fwd_p, *grads_p))))
 
     rows = []
     for shape in list(shapes) + [main_shape]:
         B, k, S, K, d = shape
         args = nomad_inputs(B, k, S, K, d, device, seed=sum(shape))
         gbar = torch.full((B,), 1.0 / B, device=device)
-        loss, m = ops.nomad_step_fwd_cuda(*args)
-        loss_p, m_p = ops.nomad_step_fwd_plain(*args)
-        grads = ops.nomad_step_bwd_cuda(*args, m, gbar)
-        grads_p = ops.nomad_step_bwd_plain(*args, m_p, gbar)
-        torch.cuda.synchronize()
-        outs = {"loss": (loss, loss_p), "m": (m, m_p)}
-        outs.update(zip(("g_i", "g_pos", "g_neg"), zip(grads, grads_p)))
-        errs, ok = {}, True
-        for name, (g, w) in outs.items():
-            atol = ops.TOL[1] if shape != main_shape else ops.TOL[1] * float(w.abs().max())
-            errs[name] = _max_err(g, w)
-            ok &= bool(torch.isfinite(g).all()) and _close(g, w, ops.TOL[0], atol)
-        rows.append({"shape": shape, "max_abs_err": errs, "ok": ok})
-        if not ok:
-            raise AssertionError(f"nomad_step disagrees with its plain version at {shape}: {errs}")
+        errs = _check_pair(f"nomad_step at {shape}", pair(args, gbar), ops.TOL, shape == main_shape)
+        rows.append({"shape": shape, "plan": ops.plan(K), "max_abs_err": errs, "ok": True})
+
     B, k, S, K, d = main_shape
     args = nomad_inputs(B, k, S, K, d, device, seed=1)
     gbar = torch.full((B,), 1.0 / B, device=device)
-    _, m = ops.nomad_step_fwd_cuda(*args)
-    fwd_flops = B * (K * (3 * d + 4) + (k + S) * (3 * d + 12))
-    in_words = B * d + B * k * d + B * k + B * S * d + B * S + K * d + K + B
-    bwd_flops = B * (K * (5 * d + 4) + (k + S) * (8 * d + 8))
-    fwd_bytes, bwd_bytes = 4.0 * (in_words + 2 * B), 4.0 * (in_words + 2 * B + B * d + B * k * d + B * S * d)
-    # SFU work as csrc/nomad_step.cu takes it: a reciprocal for each mean but
-    # the own cell and each negative; per positive a reciprocal, logf and
-    # log1pf (forward) or three divisions (backward)
-    sfu = B * (K - 1) + B * S + 3 * B * k
+    loss, m, far = ops.nomad_step_fwd_cuda(*args, want_far=True)
+    grads = ops.nomad_step_bwd_cuda(*args[:5], m, far, gbar)
+    h = B // 2
+    half = [a[:h].contiguous() if i in (0, 1, 2, 3, 4, 7) else a for i, a in enumerate(args)]
+    half_f = ops.nomad_step_fwd_cuda(*half, want_far=True)
+    half_b = ops.nomad_step_bwd_cuda(*half[:5], half_f[1], half_f[2], gbar[:h].contiguous())
+    if not all(torch.equal(a[:h], b) for a, b in zip((loss, m, far, *grads), (*half_f, *half_b))):
+        raise AssertionError(f"nomad_step: rows of a {h}-head call differ from the same rows of a {B}-head call")
+    rows.append({"batch_invariance": (h, B), "bit_equal": True, "ok": True})
+
+    chunks, chunk_len = ops.plan(K)
+    launch = {"chunks": chunks, "chunk_len": chunk_len, "cluster": (1, chunks, 1),
+              "blocks": chunks * -(-B // ops.HEADS), "threads": ops.THREADS, "heads_per_block": ops.HEADS,
+              "bwd_blocks": -(-B // ops.HEADS), "lanes_per_head": ops.LANES}
+    # a fused pair of the forward: d subtractions, d fmaf (1 + |θ − μ|² from
+    # 1), an fmaf for m, two products for cw·q², d fmaf for far
+    fwd_flops = B * (K * (5 * d + 4) + (k + S) * (3 * d + 12))
+    bwd_flops = B * (k + S) * (8 * d + 8)
+    per_head_in = B * d + B * k * d + B * k + B * S * d + B * S  # θ, θpos, pw, θneg, nw
+    fwd_bytes = 4.0 * (per_head_in + K * d + K + B + B * (2 + d))  # + μ, cw, own; loss, m, far out
+    bwd_bytes = 4.0 * (per_head_in + B * (2 + d) + B * d + B * k * d + B * S * d)  # + m, far, ḡ; grads out
+    # SFU work as csrc/nomad_step.cu takes it: the forward a reciprocal for
+    # every head-mean pair (the own cell's too) and each negative, and per
+    # positive a division, logf and log1pf; the backward a reciprocal per
+    # negative and three divisions per positive
+    sfu_fwd, sfu_bwd = B * K + B * S + 3 * B * k, B * S + 3 * B * k
+    errs = [r["max_abs_err"] for r in rows if "shape" in r]
+
+    def timed(fn, plain, flops, nbytes, sfu, err):
+        return {"shape": main_shape, "plan": launch, "ms": time_ms(fn, reps=50), "device_ms": device_ms(fn),
+                "plain_ms": time_ms(plain), "bound": bound_ms(flops, nbytes, sfu=sfu),
+                "bound_no_sfu": bound_ms(flops, nbytes), "sfu_ops": sfu, "library_ms": None, "max_abs_err": err}
+
     timing = {
-        "nomad_step_fwd": {
-            "ms": time_ms(lambda: ops.nomad_step_fwd_cuda(*args), reps=50),
-            "device_ms": device_ms(lambda: ops.nomad_step_fwd_cuda(*args)),
-            "plain_ms": time_ms(lambda: ops.nomad_step_fwd_plain(*args)),
-            "bound": bound_ms(fwd_flops, fwd_bytes, sfu=sfu),
-            "bound_no_sfu": bound_ms(fwd_flops, fwd_bytes),
-            "sfu_ops": sfu,
-            "library_ms": None,
-            "max_abs_err": max(max(r["max_abs_err"]["loss"], r["max_abs_err"]["m"]) for r in rows),
-        },
-        "nomad_step_bwd": {
-            "ms": time_ms(lambda: ops.nomad_step_bwd_cuda(*args, m, gbar), reps=50),
-            "device_ms": device_ms(lambda: ops.nomad_step_bwd_cuda(*args, m, gbar)),
-            "plain_ms": time_ms(lambda: ops.nomad_step_bwd_plain(*args, m, gbar)),
-            "bound": bound_ms(bwd_flops, bwd_bytes, sfu=sfu),
-            "bound_no_sfu": bound_ms(bwd_flops, bwd_bytes),
-            "sfu_ops": sfu,
-            "library_ms": None,
-            "max_abs_err": max(max(r["max_abs_err"][g] for g in ("g_i", "g_pos", "g_neg")) for r in rows),
-        },
+        "nomad_step_fwd": timed(lambda: ops.nomad_step_fwd_cuda(*args, want_far=True),
+                                lambda: ops.nomad_step_fwd_plain(*args, want_far=True), fwd_flops, fwd_bytes,
+                                sfu_fwd, max(max(e["loss"], e["m"], e["far"]) for e in errs)),
+        "nomad_step_bwd": timed(lambda: ops.nomad_step_bwd_cuda(*args[:5], m, far, gbar),
+                                lambda: ops.nomad_step_bwd_plain(*args[:5], m, far, gbar), bwd_flops, bwd_bytes,
+                                sfu_bwd, max(max(e["g_i"], e["g_pos"], e["g_neg"]) for e in errs)),
     }
+    # the forward without far, as a no-grad caller runs it
+    timing["nomad_step_fwd"]["device_ms_without_far"] = device_ms(lambda: ops.nomad_step_fwd_cuda(*args))
     return rows, timing
 
 
@@ -408,22 +438,6 @@ def check_pairwise(device, shapes, cand_shape, cell_shape, query_shape):
     query = timed(torch.randn(b, n, d, generator=g, device=device),
                   torch.randn(b, m, d, generator=g, device=device), b)
     return rows, {"pairwise": cand, "pairwise[in-cell batch]": cell, "pairwise[query batch]": query}
-
-
-def _check_pair(name, outs, tol, scaled):
-    """Every (kernel, plain) output pair within (rtol, atol); with
-    ``scaled`` atol is tol[1] times the output's largest magnitude (a sum
-    over K = 4096 terms rounds with the summed magnitudes, not the result)."""
-    import torch
-
-    errs, ok = {}, True
-    for label, (g, w) in outs.items():
-        atol = tol[1] * float(w.abs().max()) if scaled else tol[1]
-        errs[label] = _max_err(g, w)
-        ok &= bool(torch.isfinite(g).all()) and _close(g, w, tol[0], atol)
-    if not ok:
-        raise AssertionError(f"{name} disagrees with its plain version: {errs}")
-    return errs
 
 
 def check_cauchy_mean(device, shapes, main_shape):
@@ -937,6 +951,26 @@ def card_line() -> str:
     return out[0]
 
 
+def ptxas_entries(log: str) -> list:
+    """Each kernel of a ``ptxas -v`` log: its mangled name, registers and
+    spill bytes."""
+    import re
+
+    entries, props = [], {}
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entries.append({"entry": m.group(1)})
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = {"entry": m.group(1)}
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            for e in entries:
+                if e["entry"] == props.get("entry"):
+                    e["spill_stores"], e["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entries:
+            entries[-1]["registers"] = int(m.group(1))
+    return entries
+
+
 def kernel_phases(device):
     """Phases 2 and 3: build every kernel, then check and time each one."""
     from repro_torch.kernels import _build
@@ -947,6 +981,9 @@ def kernel_phases(device):
     ptxas = {n: [ln.strip() for ln in _build.ptxas_report(n).splitlines() if "Used" in ln or "spill" in ln]
              for n in libs}
     print(json.dumps({"build_s": build_s, "ptxas": ptxas}), flush=True)
+    # K1's main-path instantiations (d = 2): registers and spills
+    k1 = [e for e in ptxas_entries(_build.ptxas_report("nomad_step")) if "ILi2E" in e["entry"]]
+    print(json.dumps({"ptxas_nomad_step_d2": k1}), flush=True)
     checks, timing = {}, {}
     for name, fn, args in (
         ("nomad_step", check_nomad_step, (NOMAD_SHAPES, NOMAD_MAIN)),

@@ -38,8 +38,8 @@ SIGNATURES = {
     "pairwise": {"pairwise_dist2_f32": [_V] * 3 + [_I] * 6 + [_V]},
     "kmeans_assign": {"kmeans_assign_f32": [_V] * 6 + [_I] * 5 + [_V]},
     "nomad_step": {
-        "nomad_step_fwd_f32": [_V] * 10 + [_I] * 5 + [_V],
-        "nomad_step_bwd_f32": [_V] * 13 + [_I] * 5 + [_V],
+        "nomad_step_fwd_f32": [_V] * 11 + [_I] * 7 + [_V],
+        "nomad_step_bwd_f32": [_V] * 11 + [_I] * 4 + [_V],
     },
     "cauchy_mean": {
         "cauchy_mean_fwd_f32": [_V] * 5 + [_I] * 5 + [_V],

@@ -3,7 +3,8 @@
 Replaces the TPU kernels ``src/repro/kernels/cauchy_mean/cauchy_mean.py``
 (``cauchy_mean_fwd_pallas`` and ``cauchy_mean_bwd_pallas``) and their
 custom VJP (``ops.py:_build_op``), hand-written for Hopper in
-``csrc/cauchy_mean.cu``. Per head b, with q = 1/(1 + ‖θ_b − μ_r‖²):
+``csrc/cauchy_mean.cu`` over the walk of ``csrc/cauchy_walk.cuh``
+(shared with K1's forward). Per head b, with q = 1/(1 + ‖θ_b − μ_r‖²):
 
     s_b  = Σ_r w_r·[r ≠ own_b]·q
     gθ_b = −2·ḡ_b·Σ_r w_r·[r ≠ own_b]·q²·(θ_b − μ_r)
@@ -37,18 +38,24 @@ HEADS = 16  # heads of one block
 THREADS = 128
 
 
-def plan(K: int) -> tuple[int, int]:
+def split_means(K: int, chunk: int) -> tuple[int, int]:
     """(chunks, chunk_len): the K means cut into ``chunks`` contiguous
     chunks of ``chunk_len`` (a multiple of 32; the last chunk may be short,
-    none is empty). One chunk of up to TILE means per block, up to
-    MAX_CLUSTER chunks, longer chunks beyond. It depends on K alone, never
-    on B or on the card, because the chunks fix the order of each head's
-    sum."""
+    none is empty) for the walk of ``csrc/cauchy_walk.cuh``: one chunk of up
+    to ``chunk`` means per block, up to MAX_CLUSTER chunks, longer chunks
+    beyond. It takes no B and no card, because the chunks fix the order of
+    each head's sum."""
     if K < 1:
         raise ValueError(f"plan: K={K} < 1")
-    chunks = min(MAX_CLUSTER, -(-K // TILE))
+    chunks = min(MAX_CLUSTER, -(-K // chunk))
     chunk_len = 32 * -(-K // (32 * chunks))
     return -(-K // chunk_len), chunk_len
+
+
+def plan(K: int) -> tuple[int, int]:
+    """K4's chunks: one TILE a block (8 chunks of 512 at K 4096). It
+    depends on K alone, never on B or on the card."""
+    return split_means(K, TILE)
 
 
 def cauchy_mean_fwd_plain(th, mu, w, own):

@@ -65,18 +65,20 @@ def names() -> list[str]:
     return sorted(_KERNELS)
 
 
-def dispatch(name: str, *tensors):
+def dispatch(name: str, *tensors, **options):
     """Run kernel ``name``: the plain version on CPU tensors, the CUDA
-    kernel on CUDA tensors. Mixed or other devices raise."""
+    kernel on CUDA tensors. Mixed or other devices raise. A ``None`` in
+    ``tensors`` (an input the call does without) is passed on as it is,
+    and so are the keyword ``options``."""
     kernel = get(name)
-    devices = {t.device for t in tensors}
+    devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
     (device,) = devices
     if device.type == "cpu":
-        return kernel.plain(*tensors)
+        return kernel.plain(*tensors, **options)
     if device.type == "cuda":
-        return kernel.cuda(*tensors)
+        return kernel.cuda(*tensors, **options)
     raise ValueError(f"{name}: no kernel for device {device}")
 
 

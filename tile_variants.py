@@ -4,6 +4,8 @@
     python3 tile_variants.py          # the K2/K3 tensor-core tile
     python3 tile_variants.py cauchy   # K4 cauchy_mean
     python3 tile_variants.py cauchy base no_math   # named variants only
+    python3 tile_variants.py nomad    # K1 nomad_step
+    python3 tile_variants.py sass     # K1's walk: SASS instructions a pair
 
 Each variant is one source edit of a kernel source (the committed source
 is ``base``), built with the port's nvcc flags into
@@ -21,12 +23,24 @@ rounds), device ms (torch.profiler, ``chip_smoke.device_ms``) and errors.
 * ``copy_err``: the largest |kernel − plain| of K2's minimum distance on
   rows that are exact copies of a centroid (d² ≈ 0).
 
-``cauchy`` edits ``src/repro_torch/csrc/cauchy_mean.cu`` and measures K4f
-and K4b at serving's B 1024 × K 4096 × d 2, with ``share``: the largest
+``cauchy`` edits ``src/repro_torch/csrc/cauchy_mean.cu`` and the walk it
+shares with K1 (``cauchy_walk.cuh``), and measures K4f and K4b at
+serving's B 1024 × K 4096 × d 2, with ``share``: the largest
 |kernel − plain| / (atol + rtol·|plain|) at chip_smoke's rule for that
 shape (atol scaled by the largest output).
 
-Variants that change the arithmetic or drop work (``one_pass``,
+``nomad`` edits ``src/repro_torch/csrc/nomad_step.cu`` and
+``cauchy_walk.cuh`` (only K1 is rebuilt), and measures K1f (with far, the
+fit's forward, and without), K1b and K1f at 4096 heads at the fit's step,
+B 8192 × K 4096 × d 2, with the same ``share`` for each output. Its chunk
+variants set ``ops.CHUNK`` (the plan is Python's) rather than edit a
+source. ``no_fuse_ms``, measured for every variant, times the schedule
+of a backward that walks the means again: the forward without far, the
+walk with far (the forward with far stands in for it) and the backward's
+k + S terms.
+
+Each edit applies to the first of the family's sources that holds its
+old text. Variants that change the arithmetic or drop work (``one_pass``,
 ``no_split``; ``empty``, ``no_math``, ``no_dsmem``) are timings of what the
 dropped part costs, not candidates: their errors are printed, not checked.
 Writes ``tile_variants[_<family>].json`` beside ``chip_smoke.json`` and
@@ -36,6 +50,7 @@ prints one JSON line per measurement. Runs only on a CUDA card.
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import os
 import shutil
@@ -71,8 +86,9 @@ TILE_VARIANTS = {
                   "  big = small = __float_as_uint(v);")],
 }
 
-CAUCHY_LOOP = "    if (head0 >= B) continue;  // uniform over the warp\n"
-FULL_LOOP = "#pragma unroll\n      for (int j = 0; j < TILE / 32; ++j)"
+WALK_LOOP = "      if (head0 >= B) continue;  // uniform over the warp\n"  # cauchy_walk.cuh
+FULL_LOOP = "#pragma unroll\n        for (int j = 0; j < TILE / 32; ++j)"
+STAGE_LOOP = "      for (int i = threadIdx.x; i < n; i += THREADS) {"
 CAUCHY_VARIANTS = {
     "base": [],
     # the correctly rounded IEEE division in place of rcp.approx on the SFU
@@ -95,38 +111,79 @@ CAUCHY_VARIANTS = {
     "no_cluster": [("attr[0].val.clusterDim.y = chunks;", "attr[0].val.clusterDim.y = 1;")],
     # rank 0's blocks write the SM clocks they took, start to write, in
     # place of s (k4f_max)
-    "clock": [("  cluster_arrive_relaxed();  // phase 1: this block has started\n",
-               "  cluster_arrive_relaxed();  // phase 1: this block has started\n  const long long clk0 = clock64();\n"),
+    "clock": [("  if (!W::run(", "  const long long clk0 = clock64();\n  if (!W::run("),
               ("        out[b] = s;", "        out[b] = static_cast<float>(clock64() - clk0);")],
     # a cluster launch that returns at once; staging and the cluster
     # reduction without the pairs; each block keeps its partials
-    "empty": [("  const int lane = threadIdx.x & 31;\n", "  if (B > 0) return;\n  const int lane = threadIdx.x & 31;\n")],
-    "no_math": [(CAUCHY_LOOP, "    continue;\n")],
-    "no_dsmem": [("cluster.map_shared_rank(part_s, 0)", "part_s")],
+    "empty": [("  if (!W::run(", "  if (B > 0) return;\n  if (!W::run(")],
+    "no_math": [(WALK_LOOP, "      continue;\n")],
+    "no_dsmem": [("cluster.map_shared_rank(sh.part, 0)", "sh.part")],
 }
 
+NOMAD_VARIANTS = {
+    "base": [],
+    # the correctly rounded IEEE division in place of rcp.approx, in the walk
+    # and for the negatives (as in the kernel before the walk was shared)
+    "ieee_div": [("const float q = rcp_sfu(s);", "const float q = 1.f / s;"),
+                 ("rcp_sfu(s), mn)", "1.f / s, mn)"),
+                 ("const float qn = rcp_sfu(s);", "const float qn = 1.f / s;")],
+    # heads a lane (and lanes a head over the k + S terms: 32 / heads)
+    "heads2": [("constexpr int HEADS_PER_WARP = 4;", "constexpr int HEADS_PER_WARP = 2;")],
+    "heads8": [("constexpr int HEADS_PER_WARP = 4;", "constexpr int HEADS_PER_WARP = 8;")],
+    "warps8": [("constexpr int WARPS = 4;", "constexpr int WARPS = 8;")],
+    "tile512": [("constexpr int TILE = 1024;", "constexpr int TILE = 512;")],  # 1024 means staged a time committed
+    # the K split: 4 chunks of 1024 and one of 4096 (ops.CHUNK, below)
+    "chunk1024": [],
+    "chunk4096": [],
+    "unroll4": [(FULL_LOOP, "#pragma unroll 4\n" + FULL_LOOP.split("\n", 1)[1])],
+    # probes: no own-cell test (every head keeps its own cell's term: wrong
+    # m and far); launches that return at once; the walk without its pairs
+    "no_own": [("        if (r0 + r != ob[h]) {", "        {")],
+    "empty": [("  if (!W::run(", "  if (B > 0) return;\n  if (!W::run("),
+              ("  const float mb = live", "  if (B > 0) return;\n  const float mb = live")],
+    "no_math": [(WALK_LOOP, "      continue;\n")],
+    # the forward without its negatives and positives (rank 0's tail)
+    "no_tail": [("  float mn = 0.f;  // exact in-cell negatives\n  if (live) {",
+                 "  float mn = 0.f;  // exact in-cell negatives\n  if (false) {"),
+                ("  float l = 0.f;  // attraction + shared log-denominator\n  if (live) {",
+                 "  float l = 0.f;  // attraction + shared log-denominator\n  if (false) {")],
+    # staging without its global loads (every record (0, .., 0, 1))
+    "no_stage_loads": [("        load_mean<D>(mu, t0 + i, vec, v);\n", "        for (int dd = 0; dd < D; ++dd) v[dd] = 0.f;\n"),
+                       ("        rec[D] = w[t0 + i];", "        rec[D] = 1.f;")],
+    "stage_unroll": [(STAGE_LOOP, "#pragma unroll 4\n" + STAGE_LOOP)],
+    # rank 0's tail: its loops unrolled by 2
+    "tail_unroll2": [("    for (int j = sub; j < S; j += LANES) {", "#pragma unroll 2\n    for (int j = sub; j < S; j += LANES) {"),
+                     ("    for (int j = sub; j < k; j += LANES) {", "#pragma unroll 2\n    for (int j = sub; j < k; j += LANES) {")],
+}
 
 
 def build(family, names):
     from repro_torch.kernels import _build
 
-    source, kernels, variants = family["source"], family["kernels"], family["variants"]
+    sources, kernels, variants = family["sources"], family["kernels"], family["variants"]
     procs, libs = {}, {}
     for name in names:
-        out_dir = os.path.join(ROOT, "build", "tile_variants", family["source"].split(".")[0], name)
+        out_dir = os.path.join(ROOT, "build", "tile_variants", sources[0].split(".")[0], name)
         shutil.rmtree(out_dir, ignore_errors=True)
         shutil.copytree(_build.CSRC, out_dir)
-        path = os.path.join(out_dir, source)
-        with open(path) as f:
-            src = f.read()
-        missing = [old for old, _ in variants[name] if old not in src]
-        if missing:
-            print(json.dumps({"variant": name, "skipped": f"its edit no longer matches {source}"}), flush=True)
-            continue
+        texts = {}
+        for f in sources:
+            with open(os.path.join(out_dir, f)) as fh:
+                texts[f] = fh.read()
+        missing = False
         for old, new in variants[name]:
-            src = src.replace(old, new)
-        with open(path, "w") as f:
-            f.write(src)
+            where = next((f for f in sources if old in texts[f]), None)
+            if where is None:
+                missing = True
+                break
+            texts[where] = texts[where].replace(old, new)
+        if missing:
+            print(json.dumps({"variant": name, "skipped": f"an edit no longer matches {', '.join(sources)}"}),
+                  flush=True)
+            continue
+        for f, text in texts.items():
+            with open(os.path.join(out_dir, f), "w") as fh:
+                fh.write(text)
         for kernel in kernels:
             lib = os.path.join(out_dir, f"lib{kernel}.so")
             cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib, os.path.join(out_dir, f"{kernel}.cu")]
@@ -227,11 +284,87 @@ def cauchy_probe(device):
     return measure
 
 
+def nomad_probe(device):
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.nomad_step import ops
+
+    B, k, S, K, d = chip_smoke.NOMAD_MAIN
+    args = chip_smoke.nomad_inputs(B, k, S, K, d, device, seed=0)
+    gbar = torch.full((B,), 1.0 / B, device=device)
+    fwd_p = ops.nomad_step_fwd_plain(*args, want_far=True)
+    want = (*fwd_p, *ops.nomad_step_bwd_plain(*args[:5], fwd_p[1], fwd_p[2], gbar))
+    h = B // 2
+    half = [a[:h].contiguous() if i in (0, 1, 2, 3, 4, 7) else a for i, a in enumerate(args)]
+
+    def share(got, w):
+        rtol, atol = ops.TOL
+        return float(((got - w).abs() / (atol * w.abs().max() + rtol * w.abs())).max())
+
+    def fused():
+        _, m, far = ops.nomad_step_fwd_cuda(*args, want_far=True)
+        ops.nomad_step_bwd_cuda(*args[:5], m, far, gbar)
+
+    def unfused():  # the backward walks the means again
+        ops.nomad_step_fwd_cuda(*args)
+        _, m, far = ops.nomad_step_fwd_cuda(*args, want_far=True)
+        ops.nomad_step_bwd_cuda(*args[:5], m, far, gbar)
+
+    def measure():
+        fwd = ops.nomad_step_fwd_cuda(*args, want_far=True)
+        got = (*fwd, *ops.nomad_step_bwd_cuda(*args[:5], fwd[1], fwd[2], gbar))
+        torch.cuda.synchronize()
+        _, m, far = fwd
+        return {
+            "plan": ops.plan(K),
+            "k1f_ms": chip_smoke.device_ms(lambda: ops.nomad_step_fwd_cuda(*args, want_far=True)),
+            "k1f_nofar_ms": chip_smoke.device_ms(lambda: ops.nomad_step_fwd_cuda(*args)),
+            "k1b_ms": chip_smoke.device_ms(lambda: ops.nomad_step_bwd_cuda(*args[:5], m, far, gbar)),
+            "pair_ms": chip_smoke.device_ms(fused),
+            "no_fuse_ms": chip_smoke.device_ms(unfused),
+            "k1f_half_ms": chip_smoke.device_ms(lambda: ops.nomad_step_fwd_cuda(*half, want_far=True)),
+            **{f"{label}_share": share(g, w)
+               for label, g, w in zip(("loss", "m", "far", "g_i", "g_pos", "g_neg"), got, want)},
+        }
+
+    return measure
+
+
+def sass_mix(entry="nomad_fwd_kernelILi2ELb1E", window=32):
+    """Instruction mix of K1's walk as built: ``cuobjdump -sass`` of the
+    nomad_step library, in the kernel whose mangled name holds ``entry``
+    (d = 2, with far), the instructions from its first LDS.128 to its
+    ``window``-th (the fully unrolled tile loop: one 16-byte record load a
+    mean for 4 heads), counted by opcode and divided by the MUFU count
+    (one reciprocal a pair)."""
+    import collections
+    import re
+
+    from repro_torch.kernels import _build
+
+    lib = _build.build(("nomad_step",))["nomad_step"]
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    body = next(f for f in re.split(r"\n\s+Function : ", sass) if entry in f.split("\n", 1)[0])
+    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
+    loads = [i for i, op in enumerate(ops) if op.startswith("LDS.128")]
+    counts = collections.Counter(op.split(".")[0] for op in ops[loads[0]:loads[window - 1]])
+    pairs = counts["MUFU"]
+    return {"entry": entry, "instructions": sum(counts.values()), "pairs": pairs,
+            "per_pair": sum(counts.values()) / pairs, "mix_per_pair": {op: n / pairs for op, n in counts.most_common()}}
+
+
 FAMILIES = {
-    "tile": {"source": "tf32x3_tile.cuh", "kernels": ("kmeans_assign", "pairwise"),
+    "tile": {"sources": ("tf32x3_tile.cuh",), "kernels": ("kmeans_assign", "pairwise"),
              "variants": TILE_VARIANTS, "probe": tile_probe, "out": "tile_variants.json"},
-    "cauchy": {"source": "cauchy_mean.cu", "kernels": ("cauchy_mean",),
+    "cauchy": {"sources": ("cauchy_mean.cu", "cauchy_walk.cuh"), "kernels": ("cauchy_mean",),
                "variants": CAUCHY_VARIANTS, "probe": cauchy_probe, "out": "tile_variants_cauchy.json"},
+    "nomad": {"sources": ("nomad_step.cu", "cauchy_walk.cuh"), "kernels": ("nomad_step",),
+              "variants": NOMAD_VARIANTS, "probe": nomad_probe, "out": "tile_variants_nomad.json",
+              # module attributes set while a variant is measured
+              "settings": ("repro_torch.kernels.nomad_step.ops",
+                           {"chunk1024": {"CHUNK": 1024}, "chunk4096": {"CHUNK": 4096}})},
 }
 
 
@@ -243,6 +376,10 @@ def main(argv) -> int:
         return 1
     import chip_smoke
 
+    if argv[:1] == ["sass"]:
+        mix = sass_mix()
+        print(json.dumps({"card": chip_smoke.card_line(), **mix}), flush=True)
+        return 0
     family = FAMILIES[argv[0] if argv else "tile"]
     names = argv[1:] or list(family["variants"])
     device = torch.device("cuda", 0)
@@ -252,10 +389,21 @@ def main(argv) -> int:
     measure = family["probe"](device)
     rounds = []
     order = [n for n in names if n in libs]
+    module, settings = family.get("settings", (None, {}))
     for turn in (order, order[::-1]):
         for name in turn:
             use(libs[name])
-            row = {"variant": name, **measure()}
+            saved = {}
+            if name in settings:
+                mod = importlib.import_module(module)
+                for attr, value in settings[name].items():
+                    saved[attr] = getattr(mod, attr)
+                    setattr(mod, attr, value)
+            try:
+                row = {"variant": name, **measure()}
+            finally:
+                for attr, value in saved.items():
+                    setattr(mod, attr, value)
             rounds.append(row)
             print(json.dumps(row), flush=True)
     os.makedirs(chip_smoke.OUT_DIR, exist_ok=True)
