@@ -11,7 +11,8 @@ Phases, each fatal on failure:
 3. hold each kernel against its plain PyTorch version on the card, at the
    JAX spec's check shapes and at the main path's shapes, and time the
    kernel, the plain version and (where one exists) the one PyTorch call
-   that computes the same function;
+   that computes the same function; then hold the top-k sites to
+   ``jax.lax.top_k``'s order among ties and time both ways of it;
 4. the main path: ``NomadProjection(PUBMED.replace(...)).fit(x)`` on cuda
    at PubMed's published widths with N and the epoch count cut (listed in
    ``reduced``), with every kernel's launch count read around it, the
@@ -513,8 +514,10 @@ def check_cauchy_mean(device, shapes, main_shape):
 
 def check_frozen_attract(device, shapes, main_shape):
     """K5 forward and backward against the plain versions at the JAX spec's
-    check shapes and the serving shape (B 1024, k 15), (1e-5, 1e-6): each
-    output sums only k = 15 terms."""
+    check shapes, k = 40 (more neighbours than a warp has lanes) and the
+    serving shape (B 1024, k 15), (1e-5, 1e-6): each output sums only k
+    terms. At the serving shape also: rows [0, B/2) of the call bit-equal
+    to a B/2-query call (the lanes a query follow k alone)."""
     import torch
 
     from repro_torch.kernels.frozen_attract import ops
@@ -527,6 +530,10 @@ def check_frozen_attract(device, shapes, main_shape):
                 torch.rand(B, generator=g, device=device) * 5.0,
                 torch.rand(B, generator=g, device=device))
 
+    def launch(B, k):
+        lanes = ops.plan(k)
+        return {"lanes": lanes, "threads": ops.THREADS, "blocks": -(-B * lanes // ops.THREADS)}
+
     rows = []
     for shape in list(shapes) + [main_shape]:
         *args, gbar = inputs(*shape, seed=sum(shape))
@@ -534,37 +541,71 @@ def check_frozen_attract(device, shapes, main_shape):
         outs = {"loss": (ops.frozen_attract_fwd_cuda(*args), ops.frozen_attract_fwd_plain(*args)),
                 "g_theta": (gt, gt_p), "g_m": (gm, gm_p)}
         torch.cuda.synchronize()
-        rows.append({"shape": shape, "max_abs_err": _check_pair("frozen_attract", outs, ops.TOL, False),
-                     "ok": True})
+        rows.append({"shape": shape, "plan": launch(shape[0], shape[1]),
+                     "max_abs_err": _check_pair("frozen_attract", outs, ops.TOL, False), "ok": True})
     B, k, d = main_shape
+    th, nb, w, m, gbar = inputs(B, k, d, seed=5)
+    h = B // 2
+    half = [t[:h].contiguous() for t in (th, nb, w, m)]
+    full = (ops.frozen_attract_fwd_cuda(th, nb, w, m), *ops.frozen_attract_bwd_cuda(th, nb, w, m, gbar))
+    part = (ops.frozen_attract_fwd_cuda(*half), *ops.frozen_attract_bwd_cuda(*half, gbar[:h].contiguous()))
+    if not all(torch.equal(a[:h], b) for a, b in zip(full, part)):
+        raise AssertionError(f"frozen_attract: rows of a {h}-query call differ from the same rows of a {B}-query call")
+    rows.append({"batch_invariance": (h, B), "bit_equal": True, "ok": True})
+
     *args, gbar = inputs(B, k, d, seed=4)
     in_bytes = 4.0 * (B * d + B * k * d + B * k + B)
     # SFU work as csrc/frozen_attract.cu takes it, per neighbour: a
-    # reciprocal, logf and log1pf (forward) or three divisions (backward)
-    sfu = 3 * B * k
+    # reciprocal, logf and log1pf (forward) or two reciprocals (backward)
+    sfu_fwd, sfu_bwd = 3 * B * k, 2 * B * k
+    errs = [r["max_abs_err"] for r in rows if "shape" in r]
+
+    def timed(fn, plain, flops, nbytes, sfu, err):
+        return {"shape": main_shape, "plan": launch(B, k),
+                "ms": time_ms(fn, reps=50), "device_ms": device_ms(fn), "plain_ms": time_ms(plain),
+                "bound": bound_ms(flops, nbytes, sfu=sfu), "bound_no_sfu": bound_ms(flops, nbytes),
+                "sfu_ops": sfu, "library_ms": None, "max_abs_err": err}
+
     timing = {
-        "frozen_attract_fwd": {
-            "ms": time_ms(lambda: ops.frozen_attract_fwd_cuda(*args), reps=50),
-            "device_ms": device_ms(lambda: ops.frozen_attract_fwd_cuda(*args)),
-            "plain_ms": time_ms(lambda: ops.frozen_attract_fwd_plain(*args)),
-            "bound": bound_ms(B * k * (3.0 * d + 12), in_bytes + 4.0 * B, sfu=sfu),
-            "bound_no_sfu": bound_ms(B * k * (3.0 * d + 12), in_bytes + 4.0 * B),
-            "sfu_ops": sfu,
-            "library_ms": None,
-            "max_abs_err": max(r["max_abs_err"]["loss"] for r in rows),
-        },
-        "frozen_attract_bwd": {
-            "ms": time_ms(lambda: ops.frozen_attract_bwd_cuda(*args, gbar), reps=50),
-            "device_ms": device_ms(lambda: ops.frozen_attract_bwd_cuda(*args, gbar)),
-            "plain_ms": time_ms(lambda: ops.frozen_attract_bwd_plain(*args, gbar)),
-            "bound": bound_ms(B * k * (5.0 * d + 9), in_bytes + 4.0 * B * (2 + d), sfu=sfu),
-            "bound_no_sfu": bound_ms(B * k * (5.0 * d + 9), in_bytes + 4.0 * B * (2 + d)),
-            "sfu_ops": sfu,
-            "library_ms": None,
-            "max_abs_err": max(max(r["max_abs_err"]["g_theta"], r["max_abs_err"]["g_m"]) for r in rows),
-        },
+        "frozen_attract_fwd": timed(lambda: ops.frozen_attract_fwd_cuda(*args),
+                                    lambda: ops.frozen_attract_fwd_plain(*args),
+                                    B * k * (3.0 * d + 12), in_bytes + 4.0 * B, sfu_fwd, max(e["loss"] for e in errs)),
+        "frozen_attract_bwd": timed(lambda: ops.frozen_attract_bwd_cuda(*args, gbar),
+                                    lambda: ops.frozen_attract_bwd_plain(*args, gbar),
+                                    B * k * (5.0 * d + 9), in_bytes + 4.0 * B * (2 + d), sfu_bwd,
+                                    max(max(e["g_theta"], e["g_m"]) for e in errs)),
     }
     return rows, timing
+
+
+def check_top_k(device, sites):
+    """The three top-k sites at the main path's shapes. Both exact ways of
+    ``jax.lax.top_k``'s order (``index/knn.py``: a stable sort of the
+    total-order keys; ``torch.topk`` over int64 keys with the column) on
+    integer-valued distances, with many ties, must give a stable sort's
+    first k indices; then, on Gaussian distances, the time of each and of
+    the float ``torch.topk`` the port took before (no order among ties):
+    CUDA events around the calls (host included) and their device time."""
+    import torch
+
+    from repro_torch.index import knn
+
+    exact = {"by_sort": knn.smallest_k_by_sort, "by_topk": knn.smallest_k_by_topk}
+    ways = {**exact, "float_topk": lambda t, k: torch.topk(t, k, dim=-1, largest=False)}
+    out = {}
+    for label, (shape, k) in sites.items():
+        g = _gen(device, 400 + k)
+        tied = torch.randint(0, 8, shape, generator=g, device=device).float()
+        want = torch.sort(tied, dim=-1, stable=True).indices[..., :k]
+        for name, fn in exact.items():
+            if not torch.equal(fn(tied, k)[1], want):
+                raise AssertionError(f"smallest_k_{name} at {label} {shape}: ties not in ascending index order")
+        del tied, want
+        d = torch.randn(shape, generator=g, device=device).abs()
+        out[label] = {"shape": shape, "k": k, "ties_in_index_order": True,
+                      **{f"{name}_ms": time_ms(lambda: fn(d, k)) for name, fn in ways.items()},
+                      **{f"{name}_device_ms": device_ms(lambda: fn(d, k)) for name, fn in ways.items()}}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -921,6 +962,7 @@ CAUCHY_SHAPES = [(512, 1024, 2), (100, 64, 2), (64, 100, 3), (777, 333, 2)]  # t
 CAUCHY_SERVE = (1024, 4096, 2)  # serve_microbatch queries against K means
 ATTRACT_SHAPES = [(512, 15, 2), (64, 8, 2), (100, 5, 3), (777, 15, 2)]  # the JAX spec's
 ATTRACT_SERVE = (1024, 15, 2)
+ATTRACT_WIDE = (64, 40, 4)  # k past a warp's 32 lanes: two neighbours a lane
 NOMAD_SHAPES = [(512, 15, 16, 64, 2), (100, 5, 4, 33, 2), (64, 3, 8, 100, 3), (777, 15, 16, 130, 2)]
 NOMAD_MAIN = (8192, 15, 16, 4096, 2)
 KMEANS_SHAPES = [(512, 256, 64), (1000, 17, 32), (64, 512, 128), (513, 255, 48)]
@@ -930,6 +972,11 @@ PAIRWISE_SHAPES = [(96, 128, 64), (100, 60, 33), (8, 257, 128), (64, 64, 16)]
 PAIRWISE_CAND = (16384, 4096, 768)
 PAIRWISE_CELL = (256, 305, 305, 768)  # 256 cells of capacity 305 against themselves
 PAIRWISE_QUERY = (256, 1, 305, 768)  # serving: a block of 256 queries, each against its cell
+# the top-k sites' (distances, k) at the main path's shapes: the candidate
+# pass's row block against K, 256 cells of 305 against themselves, serving's
+# block of 256 queries against their cells
+TOP_K_SITES = {"candidates": ((16384, 4096), 32), "in_cell": ((256, 305, 305), 15),
+               "query": ((256, 305), 15)}
 
 TPU_KERNELS = [
     ("K1f nomad_step_fwd", "src/repro/kernels/nomad_step/nomad_step.py:166", "nomad_step_fwd"),
@@ -981,21 +1028,30 @@ def kernel_phases(device):
     ptxas = {n: [ln.strip() for ln in _build.ptxas_report(n).splitlines() if "Used" in ln or "spill" in ln]
              for n in libs}
     print(json.dumps({"build_s": build_s, "ptxas": ptxas}), flush=True)
-    # K1's main-path instantiations (d = 2): registers and spills
+    # registers and spills: K1's main-path instantiations (d = 2), every K5
+    # instantiation (d = 1-4) and K4's at d = 1 and 4
     k1 = [e for e in ptxas_entries(_build.ptxas_report("nomad_step")) if "ILi2E" in e["entry"]]
-    print(json.dumps({"ptxas_nomad_step_d2": k1}), flush=True)
+    k5 = ptxas_entries(_build.ptxas_report("frozen_attract"))
+    k4 = [e for e in ptxas_entries(_build.ptxas_report("cauchy_mean")) if "ILi1E" in e["entry"] or "ILi4E" in e["entry"]]
+    print(json.dumps({"ptxas_nomad_step_d2": k1, "ptxas_frozen_attract": k5, "ptxas_cauchy_mean_d1_d4": k4}),
+          flush=True)
+    spilled = [e["entry"] for e in k5 if e.get("spill_stores") or e.get("spill_loads")]
+    if len(k5) != 8 or spilled:
+        raise AssertionError(f"frozen_attract: {len(k5)} of 8 instantiations in ptxas's log, spills in {spilled}")
     checks, timing = {}, {}
     for name, fn, args in (
         ("nomad_step", check_nomad_step, (NOMAD_SHAPES, NOMAD_MAIN)),
         ("kmeans_assign", check_kmeans_assign, (KMEANS_SHAPES, KMEANS_MAIN, KMEANS_SERVE)),
         ("pairwise", check_pairwise, (PAIRWISE_SHAPES, PAIRWISE_CAND, PAIRWISE_CELL, PAIRWISE_QUERY)),
         ("cauchy_mean", check_cauchy_mean, (CAUCHY_SHAPES, CAUCHY_SERVE)),
-        ("frozen_attract", check_frozen_attract, (ATTRACT_SHAPES, ATTRACT_SERVE)),
+        ("frozen_attract", check_frozen_attract, (ATTRACT_SHAPES + [ATTRACT_WIDE], ATTRACT_SERVE)),
     ):
         rows, t = fn(device, *args)
         checks[name] = rows
         timing.update(t)
         print(json.dumps({"checked": name, "rows": rows, "timing": t}), flush=True)
+    checks["top_k"] = check_top_k(device, TOP_K_SITES)
+    print(json.dumps({"checked": "top_k", "sites": checks["top_k"]}), flush=True)
     return build_s, checks, timing
 
 

@@ -33,7 +33,7 @@ import torch
 from repro_torch.configs.base import NomadConfig
 from repro_torch.index import kmeans as km
 from repro_torch.index.ann import AnnIndex, data_fingerprint
-from repro_torch.index.knn import batched_cluster_knn
+from repro_torch.index.knn import batched_cluster_knn, smallest_k_by_sort
 from repro_torch.kernels.capacity_admit.ops import capacity_admit
 from repro_torch.kernels.pairwise.ops import pairwise_dist2
 
@@ -72,17 +72,18 @@ def synchronize(device: torch.device) -> None:
 
 
 def candidate_pass(x: torch.Tensor, cents: torch.Tensor, n_cand: int, block: int):
-    """Each row's ``R = min(n_cand, K)`` nearest centroids, distance-sorted:
-    a (block, K) ``pairwise`` tile per row block, of which only the (N, R)
+    """Each row's ``R = min(n_cand, K)`` nearest centroids, distance-sorted
+    (ties to the lower centroid, as ``jax.lax.top_k`` orders them): a
+    (block, K) ``pairwise`` tile per row block, of which only the (N, R)
     top-R survives."""
     n = x.shape[0]
     r = min(n_cand, cents.shape[0])
     block = max(1, min(block, n))
     idx, d2 = [], []
     for s in range(0, n, block):
-        top = torch.topk(pairwise_dist2(x[s : s + block], cents), r, dim=-1, largest=False)
-        idx.append(top.indices.to(torch.int32))
-        d2.append(top.values)
+        top_d2, top_idx = smallest_k_by_sort(pairwise_dist2(x[s : s + block], cents), r)
+        idx.append(top_idx.to(torch.int32))
+        d2.append(top_d2)
     return torch.cat(idx), torch.cat(d2)
 
 

@@ -7,6 +7,12 @@ its leading batch dimension (one launch per chunk of cells, in place of
 the JAX package's vmap); top-k and the rank matrix stay in PyTorch.
 Serving's query-side kNN (:func:`query_cluster_knn`) takes the same kernel,
 each query a batch of one row against its cell.
+
+Top-k keeps ``jax.lax.top_k``'s order among equal distances, by the way
+that measured cheaper at each site on the card
+(``chip_smoke.py:check_top_k``): ``torch.topk`` over int64 keys for the
+in-cell kNN, a stable sort for serving's query kNN and the build's
+candidate pass.
 """
 
 from __future__ import annotations
@@ -19,6 +25,31 @@ from repro_torch.kernels.pairwise.ops import pairwise_dist2
 BIG = 1e30
 
 
+def _total_order(d: torch.Tensor) -> torch.Tensor:
+    """``d``'s float32 bits as int32 keys in the total order of floats that
+    ``jax.lax.top_k`` sorts by (-0.0 before +0.0): negative floats' bits
+    are reversed."""
+    bits = d.contiguous().view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def smallest_k_by_sort(d: torch.Tensor, k: int):
+    """(values, indices) of the k smallest entries of ``d`` along its last
+    dim, ascending, equal values in ascending index order: what
+    ``jax.lax.top_k(-d, k)`` returns. ``torch.topk`` keeps no order among
+    equal values; a stable sort of the total-order keys does."""
+    idx = torch.sort(_total_order(d), dim=-1, stable=True).indices[..., :k]
+    return torch.gather(d, -1, idx), idx
+
+
+def smallest_k_by_topk(d: torch.Tensor, k: int):
+    """:func:`smallest_k_by_sort`'s result from ``torch.topk`` over an int64
+    key: the total-order bits above, the column below, every key distinct."""
+    key = (_total_order(d).long() << 32) | torch.arange(d.shape[-1], device=d.device)
+    idx = torch.topk(key, k, dim=-1, largest=False, sorted=True).indices
+    return torch.gather(d, -1, idx), idx
+
+
 def batched_cluster_knn(x_blocks: torch.Tensor, valid: torch.Tensor, k: int):
     """x_blocks (Kc, C, D) padded cells, valid (Kc, C) real-point mask →
     (knn_idx (Kc, C, k) in-cell slots int32, weights (Kc, C, k) fp32)."""
@@ -27,7 +58,7 @@ def batched_cluster_knn(x_blocks: torch.Tensor, valid: torch.Tensor, k: int):
     pad = (~(valid[:, :, None] & valid[:, None, :])).float()
     eye = torch.eye(C, device=d2.device)
     search = d2 + pad * BIG + eye * BIG  # padding and self never chosen
-    knn_idx = torch.topk(search, k, dim=-1, largest=False, sorted=True).indices
+    _, knn_idx = smallest_k_by_topk(search, k)
     # ranks use the true distances with padding pushed to the end
     w = edge_weights(d2 + pad * BIG, knn_idx, k, valid)
     return knn_idx.to(torch.int32), w
@@ -64,9 +95,9 @@ def query_cluster_knn(q: torch.Tensor, own: torch.Tensor, x_blocks: torch.Tensor
         qb, ob = q[s : s + block].float(), own[s : s + block]
         d2 = pairwise_dist2(qb[:, None, :], x_blocks[ob])[:, 0, :]  # (b, C)
         invalid = cslots[None, :] >= counts[ob][:, None]
-        top = torch.topk(d2 + invalid * BIG, k, dim=-1, largest=False, sorted=True)
-        slots.append(top.indices)
-        d2s.append(top.values)
+        top_d2, top_slot = smallest_k_by_sort(d2 + invalid * BIG, k)
+        slots.append(top_slot)
+        d2s.append(top_d2)
     slot, d2 = torch.cat(slots), torch.cat(d2s)
     valid = (slot < counts[own][:, None]) & (d2 < BIG / 2)
     return slot, torch.where(valid, d2, 0.0), valid

@@ -46,8 +46,8 @@ SIGNATURES = {
         "cauchy_mean_bwd_f32": [_V] * 6 + [_I] * 5 + [_V],
     },
     "frozen_attract": {
-        "frozen_attract_fwd_f32": [_V] * 5 + [_I] * 3 + [_V],
-        "frozen_attract_bwd_f32": [_V] * 7 + [_I] * 3 + [_V],
+        "frozen_attract_fwd_f32": [_V] * 5 + [_I] * 4 + [_V],
+        "frozen_attract_bwd_f32": [_V] * 7 + [_I] * 4 + [_V],
     },
 }
 

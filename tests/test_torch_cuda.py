@@ -231,18 +231,101 @@ def test_cauchy_mean_own_at_chunk_boundaries(card):
                          cauchy_ops.cauchy_mean_bwd_plain(th, mu, w, own, gbar), K)
 
 
-@pytest.mark.parametrize("shape", [(64, 8, 2), (100, 5, 3)])
+def _attract_args(g, B, k, d, device):
+    """θ, nb, w, m and ḡ as the JAX spec draws them."""
+    return (_randn(g, B, d, device=device, scale=3.0), _randn(g, B, k, d, device=device, scale=3.0),
+            torch.rand((B, k), generator=g, device=device), torch.rand((B,), generator=g, device=device) * 5.0,
+            torch.rand((B,), generator=g, device=device))
+
+
+@pytest.mark.parametrize("shape", [(64, 8, 2), (100, 5, 3), (512, 15, 2), (777, 15, 2), (1024, 15, 2),
+                                   (32, 1, 2), (64, 40, 4), (50, 15, 1), (60, 15, 4)])
 def test_frozen_attract_kernels_match_plain(card, shape):
+    """The spec's four shapes, serving's (16 lanes a query), k = 1 (one
+    lane), k = 40 (two neighbours a lane past the warp's 32), and d = 1
+    and 4, within the spec's (1e-5, 1e-6)."""
     B, k, d = shape
     g = torch.Generator(device=card).manual_seed(4)
-    args = (_randn(g, B, d, device=card, scale=3.0), _randn(g, B, k, d, device=card, scale=3.0),
-            torch.rand((B, k), generator=g, device=card), torch.rand((B,), generator=g, device=card) * 5.0)
-    gbar = torch.rand((B,), generator=g, device=card)
+    *args, gbar = _attract_args(g, B, k, d, card)
     tol = dict(rtol=attract_ops.TOL[0], atol=attract_ops.TOL[1])
+    before = registry.get("frozen_attract_fwd").launches
     torch.testing.assert_close(attract_ops.frozen_attract_fwd_cuda(*args), attract_ops.frozen_attract_fwd_plain(*args), **tol)
+    assert registry.get("frozen_attract_fwd").launches == before + 1
     for got, want in zip(attract_ops.frozen_attract_bwd_cuda(*args, gbar),
                          attract_ops.frozen_attract_bwd_plain(*args, gbar)):
         torch.testing.assert_close(got, want, **tol)
+
+
+def test_frozen_attract_rows_do_not_depend_on_the_batch(card):
+    """Rows [0, 512) of a 1024-query call are the bits of a 512-query call,
+    forward and backward: the lanes a query follow k alone."""
+    g = torch.Generator(device=card).manual_seed(12)
+    th, nb, w, m, gbar = _attract_args(g, 1024, 15, 2, card)
+    half = (th[:512].contiguous(), nb[:512].contiguous(), w[:512].contiguous(), m[:512].contiguous())
+    assert torch.equal(attract_ops.frozen_attract_fwd_cuda(th, nb, w, m)[:512],
+                       attract_ops.frozen_attract_fwd_cuda(*half))
+    for full, part in zip(attract_ops.frozen_attract_bwd_cuda(th, nb, w, m, gbar),
+                          attract_ops.frozen_attract_bwd_cuda(*half, gbar[:512].contiguous())):
+        assert torch.equal(full[:512], part)
+
+
+def _tied_rows(g, n, dim, device, levels=3):
+    """Integer-valued rows, each drawn row duplicated once: their
+    distances are exact on the card (K3's split keeps small integers
+    whole) and on the CPU, so they tie alike."""
+    half = torch.randint(0, levels, (n - n // 2, dim), generator=g, device=device).float()
+    rows = torch.cat([half, half[: n // 2]])
+    return rows[torch.randperm(n, generator=g, device=device)].contiguous()
+
+
+@pytest.mark.parametrize("way", ["smallest_k_by_sort", "smallest_k_by_topk"])
+def test_smallest_k_on_card_is_the_cpu_order(card, way):
+    """Both ways of ``jax.lax.top_k``'s order on 64 × 300 integer-valued
+    distances with signed zeros: the CPU's order (``jax.lax.top_k``'s,
+    ``tests/test_torch_index.py``), whatever CUDA's sort and ``torch.topk``
+    do with ties."""
+    from repro_torch.index import knn
+
+    g = torch.Generator().manual_seed(0)
+    d = torch.randint(0, 4, (64, 300), generator=g).float()
+    d[(d == 0) & (torch.rand(d.shape, generator=g) < 0.5)] = -0.0
+    want_v, want_i = getattr(knn, way)(d, 15)
+    got_v, got_i = getattr(knn, way)(d.to(card), 15)
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_v.cpu().view(torch.int32), want_v.view(torch.int32))
+
+
+def test_top_k_sites_on_card_keep_the_cpu_ties(card):
+    """In-cell kNN, serving's query kNN and the candidate pass on data with
+    duplicated integer rows: the card gives the CPU's indices in the CPU's
+    order (which are the JAX package's, ``tests/test_torch_index.py``)."""
+    from repro_torch.index import build
+    from repro_torch.index.knn import batched_cluster_knn, query_cluster_knn
+
+    g = torch.Generator().manual_seed(1)
+    blocks = torch.stack([_tied_rows(g, 48, 5, "cpu") for _ in range(4)])
+    valid = torch.arange(48)[None, :] < torch.tensor([48, 40, 25, 11])[:, None]
+    want = batched_cluster_knn(blocks, valid, 10)
+    got = batched_cluster_knn(blocks.to(card), valid.to(card), 10)
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-6, atol=0)
+
+    counts = torch.tensor([48, 33, 9], dtype=torch.int32)
+    own = torch.randint(0, 3, (90,), generator=g, dtype=torch.int32)
+    q = blocks[own.long(), torch.randint(0, 9, (90,), generator=g)]
+    q[1::3] = torch.randint(0, 3, (30, 5), generator=g).float()
+    want = query_cluster_knn(q, own, blocks[:3], counts, 15, block=32)
+    got = query_cluster_knn(q.to(card), own.to(card), blocks[:3].to(card), counts.to(card), 15, block=32)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+    cents = _tied_rows(g, 64, 6, "cpu")
+    x = torch.cat([cents[torch.randint(0, 64, (150,), generator=g)],
+                   torch.randint(0, 3, (150, 6), generator=g).float()])
+    want = build.candidate_pass(x, cents, 12, 128)
+    got = build.candidate_pass(x.to(card), cents.to(card), 12, 128)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_negative_slots_same_on_card_and_cpu(card):

@@ -1,6 +1,7 @@
-"""The port's fit on the CPU: the quality bands of test_nomad_quality.py,
-a side-by-side fit with the JAX package on the same data, determinism,
-carrying the JAX package's index and θ across, and the device rule."""
+"""The port's fit on the CPU: the quality bands of test_nomad_quality.py
+(the multiscale band included), a side-by-side fit with the JAX package on
+the same data, determinism, carrying the JAX package's index and θ across,
+and the device rule."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import NomadConfig as JaxConfig  # noqa: E402
 from repro.core.nomad import NomadProjection as JaxProjection  # noqa: E402
+from repro.data.synthetic import hierarchical_mixture  # noqa: E402
 from repro.metrics import neighborhood_preservation, random_triplet_accuracy  # noqa: E402
 from repro.metrics.neighborhood import _topk_neighbors  # noqa: E402
 from repro_torch.configs import NomadConfig  # noqa: E402
@@ -53,6 +55,18 @@ def test_quality_bands(fitted):
     nb = np.asarray(_topk_neighbors(jnp.asarray(emb[:500]), jnp.asarray(emb), 10))
     purity = np.mean(labels[nb] == labels[:500, None])
     assert purity > 0.9, purity
+
+
+def test_multiscale_structure():
+    """tests/test_nomad_quality.py's Fig. 4 analogue on the port: the same
+    data, config and bar (super-cluster purity > 0.8 over 400 queries, 10
+    neighbours)."""
+    x, sup, _sub = hierarchical_mixture(4000, 24, n_super=4, n_sub=3, seed=3)
+    cfg = CFG.replace(n_points=4000, dim=24, n_clusters=8, n_epochs=25)
+    emb = NomadProjection(cfg, device="cpu").fit(x).embedding
+    nb = np.asarray(_topk_neighbors(jnp.asarray(emb[:400]), jnp.asarray(emb), 10))
+    sup_purity = np.mean(sup[nb] == sup[:400, None])
+    assert sup_purity > 0.8, sup_purity
 
 
 def test_side_by_side_with_jax_fit():

@@ -1,6 +1,8 @@
 """The port's local index build against the JAX package's, stage by stage,
 all from the same centroids: k-means EM, capacity assignment, admission,
-in-cell kNN with Eq. 6 weights, and the ``index.npz`` format both ways."""
+in-cell kNN with Eq. 6 weights, and the ``index.npz`` format both ways.
+The three top-k sites (in-cell kNN, serving's query kNN, the candidate
+pass) are held to ``jax.lax.top_k``'s order on data with ties."""
 
 from __future__ import annotations
 
@@ -20,13 +22,17 @@ from repro.core.rank_model import rank_matrix as jax_rank_matrix  # noqa: E402
 from repro.index import ann as jax_ann  # noqa: E402
 from repro.index import kmeans as jax_km  # noqa: E402
 from repro.index.build import IndexBuilder as JaxBuilder  # noqa: E402
+from repro.index.build import _candidate_pass as jax_candidate_pass  # noqa: E402
 from repro.index.build import capacity_assign_device  # noqa: E402
+from repro.index.knn import batched_cluster_knn as jax_batched_cluster_knn  # noqa: E402
+from repro.index.knn import query_cluster_knn as jax_query_cluster_knn  # noqa: E402
 from repro.kernels import registry as jax_registry  # noqa: E402
 from repro_torch.configs import NomadConfig  # noqa: E402
 from repro_torch.core.rank_model import edge_weights, rank_matrix  # noqa: E402
 from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
 from repro_torch.index import ann, build, kmeans  # noqa: E402
-from repro_torch.index.knn import batched_cluster_knn  # noqa: E402
+from repro_torch.index import knn  # noqa: E402
+from repro_torch.index.knn import batched_cluster_knn, query_cluster_knn  # noqa: E402
 from repro_torch.kernels.capacity_admit.ops import capacity_admit  # noqa: E402
 
 CFG = NomadConfig(
@@ -158,3 +164,79 @@ def test_port_build_is_a_valid_index(data):
     assert (index.knn_idx[live] // C == rows[live] // C).all()
     assert index.valid_mask[index.knn_idx[live]].all() and index.valid_mask[rows[live]].all()
     assert index.fingerprint == jindex.fingerprint
+
+
+# ---------------------------------------------------------------------------
+# Ties: every top-k site returns jax.lax.top_k's indices in its order
+# ---------------------------------------------------------------------------
+
+
+def _tied_rows(rng, n, dim, levels=3):
+    """Integer-valued rows (their fp32 distances are exact in both
+    frameworks, so many are equal), each drawn row duplicated once."""
+    half = rng.integers(0, levels, (n - n // 2, dim)).astype(np.float32)
+    return np.concatenate([half, half[: n // 2]])[rng.permutation(n)]
+
+
+@pytest.mark.parametrize("way", ["smallest_k_by_sort", "smallest_k_by_topk"])
+@pytest.mark.parametrize("case", ["integers", "signed_zeros", "padding"])
+def test_smallest_k_is_jax_top_k(case, way):
+    """Values, indices and order of ``jax.lax.top_k(-d, k)`` on 64 × 300
+    integer-valued distances in [0, 4), k 15 (``torch.topk`` differs on
+    every row here); with -0.0 among the zeros (JAX's total order puts it
+    first); and with BIG padding on part of each row."""
+    rng = np.random.default_rng(0)
+    d = rng.integers(0, 4, (64, 300)).astype(np.float32)
+    if case == "signed_zeros":
+        d[(d == 0) & (rng.uniform(size=d.shape) < 0.5)] = -0.0
+    elif case == "padding":
+        d[:, 200:] += np.float32(1e30)
+    want_v, want_i = jax.lax.top_k(-jnp.asarray(d), 15)
+    got_v, got_i = getattr(knn, way)(torch.from_numpy(d), 15)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy().view(np.int32), (-np.asarray(want_v)).view(np.int32))
+
+
+def test_in_cell_knn_ties_equal_jax():
+    """``batched_cluster_knn`` on cells of duplicated integer rows (some
+    padded): the JAX package's slots in its order, and its Eq. 6 weights."""
+    rng = np.random.default_rng(1)
+    Kc, C, D, k = 4, 48, 5, 10
+    blocks = np.stack([_tied_rows(rng, C, D) for _ in range(Kc)])
+    valid = np.arange(C)[None, :] < np.array([48, 40, 25, 11])[:, None]
+    want_idx, want_w = jax_batched_cluster_knn(jnp.asarray(blocks), jnp.asarray(valid), k, impl="jnp")
+    got_idx, got_w = batched_cluster_knn(torch.from_numpy(blocks), torch.from_numpy(valid), k)
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), rtol=1e-6, atol=0)
+
+
+def test_query_knn_ties_equal_jax():
+    """Serving's ``query_cluster_knn``: queries that are copies of cell
+    rows (and of each other) against cells of duplicated integer rows, one
+    cell shorter than k: the same slots in the same order, d² and mask."""
+    rng = np.random.default_rng(2)
+    K, C, D, k = 3, 40, 4, 15
+    blocks = np.stack([_tied_rows(rng, C, D) for _ in range(K)])
+    counts = np.array([40, 33, 9], np.int32)
+    own = rng.integers(0, K, 90).astype(np.int32)
+    q = blocks[own, rng.integers(0, 9, 90)]
+    q[1::3] = rng.integers(0, 3, (30, D))
+    want = jax_query_cluster_knn(jnp.asarray(q), jnp.asarray(own), jnp.asarray(blocks), jnp.asarray(counts), k,
+                                 block=32)
+    got = query_cluster_knn(torch.from_numpy(q), torch.from_numpy(own), torch.from_numpy(blocks),
+                            torch.from_numpy(counts), k, block=32)
+    for label, g, w in zip(("slot", "d2", "valid"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=label)
+
+
+def test_candidate_pass_ties_equal_jax():
+    """The capacity candidates: duplicated integer centroids, rows at and
+    between them: each row's R nearest centroids in the JAX pass's order,
+    ties to the lower centroid."""
+    rng = np.random.default_rng(3)
+    cents = _tied_rows(rng, 64, 6)
+    x = np.concatenate([cents[rng.integers(0, 64, 150)], rng.integers(0, 3, (150, 6)).astype(np.float32)])
+    want_idx, want_d2 = jax_candidate_pass(jnp.asarray(x), jnp.asarray(cents), 12, "jnp", 128)
+    got_idx, got_d2 = build.candidate_pass(torch.from_numpy(x), torch.from_numpy(cents), 12, 128)
+    np.testing.assert_array_equal(got_idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(got_d2.numpy(), np.asarray(want_d2))

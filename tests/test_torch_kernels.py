@@ -24,7 +24,7 @@ from repro.kernels import registry as jax_registry  # noqa: E402
 from repro.kernels.cauchy_mean.ref import cauchy_weighted_sum_ref  # noqa: E402
 from repro.kernels.frozen_attract.ref import frozen_attract_ref  # noqa: E402
 from repro.kernels.nomad_step.ref import nomad_step_ref  # noqa: E402
-from repro_torch.kernels import registry  # noqa: E402
+from repro_torch.kernels import _build, registry  # noqa: E402
 from repro_torch.kernels.cauchy_mean import ops as cauchy_ops  # noqa: E402
 from repro_torch.kernels.frozen_attract import ops as attract_ops  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ops as kmeans_ops  # noqa: E402
@@ -265,3 +265,19 @@ def test_pairwise_batched_equals_per_cell():
     got = pairwise_ops.pairwise_dist2(x, x)
     for b in range(3):
         torch.testing.assert_close(got[b], pairwise_ops.pairwise_dist2(x[b], x[b]), rtol=pairwise_ops.SPEC_TOL[0], atol=pairwise_ops.SPEC_TOL[1])
+
+
+@pytest.mark.parametrize("source", _build.SOURCES)
+def test_c_entries_take_what_the_loader_declares(source):
+    """Each ``extern "C"`` entry of ``csrc/<source>.cu`` takes the pointers
+    and ints, in the order, that ``_build.SIGNATURES`` hands ctypes: a
+    wrong count would pass garbage to the card unnoticed here."""
+    import ctypes
+    import re
+
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    entries = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text))
+    assert set(entries) == set(_build.SIGNATURES[source])
+    for fn, params in entries.items():
+        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params.split(",")]
+        assert kinds == _build.SIGNATURES[source][fn], fn

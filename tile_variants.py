@@ -5,6 +5,7 @@
     python3 tile_variants.py cauchy   # K4 cauchy_mean
     python3 tile_variants.py cauchy base no_math   # named variants only
     python3 tile_variants.py nomad    # K1 nomad_step
+    python3 tile_variants.py frozen   # K5 frozen_attract
     python3 tile_variants.py sass     # K1's walk: SASS instructions a pair
 
 Each variant is one source edit of a kernel source (the committed source
@@ -38,6 +39,13 @@ source. ``no_fuse_ms``, measured for every variant, times the schedule
 of a backward that walks the means again: the forward without far, the
 walk with far (the forward with far stands in for it) and the backward's
 k + S terms.
+
+``frozen`` edits ``src/repro_torch/csrc/frozen_attract.cu`` and measures
+K5f and K5b at serving's B 1024 × k 15 × d 2 (and K5f at 512 queries),
+with ``share`` for the loss, gθ and gm at the spec's unscaled
+(1e-5, 1e-6). Its lane variants set ``ops.MAX_LANES`` or ``ops.plan``
+(the plan is Python's); ``one_thread`` (one lane a query) is the layout
+of the kernel before the lanes.
 
 Each edit applies to the first of the family's sources that holds its
 old text. Variants that change the arithmetic or drop work (``one_pass``,
@@ -154,6 +162,33 @@ NOMAD_VARIANTS = {
     # rank 0's tail: its loops unrolled by 2
     "tail_unroll2": [("    for (int j = sub; j < S; j += LANES) {", "#pragma unroll 2\n    for (int j = sub; j < S; j += LANES) {"),
                      ("    for (int j = sub; j < k; j += LANES) {", "#pragma unroll 2\n    for (int j = sub; j < k; j += LANES) {")],
+}
+
+ATTRACT_FWD_MATH = "      const float q = inv(1.f + d2);\n      acc = fmaf(w[e], logf(q + mb) + log1pf(d2), acc);\n"
+ATTRACT_BWD_MATH = "      const float q = inv(1.f + d2);\n      const float r = inv(q + mb);\n"
+FROZEN_VARIANTS = {
+    "base": [],
+    # lanes a query at k = 15 (ops.MAX_LANES / ops.plan, below): 8 lanes
+    # take two neighbours each; 32 leave half the lanes idle; one lane a
+    # query walks all 15 in series (the kernel before the lanes)
+    "lanes8": [],
+    "lanes32": [],
+    "one_thread": [],
+    # threads a block (256 committed: 64 blocks at B 1024)
+    "threads64": [("constexpr int THREADS = 256;", "constexpr int THREADS = 64;")],
+    "threads128": [("constexpr int THREADS = 256;", "constexpr int THREADS = 128;")],
+    "threads512": [("constexpr int THREADS = 256;", "constexpr int THREADS = 512;")],
+    # the correctly rounded IEEE division in place of rcp.approx on the SFU
+    "ieee_div": [("  asm(\"rcp.approx.ftz.f32 %0, %1;\" : \"=f\"(y) : \"f\"(x));\n  return y;",
+                  "  return 1.f / x;")],
+    # probes: launches that return at once; the loads, butterfly and stores
+    # without the reciprocals and logs
+    "empty": [("  const Slot sl(lanes);\n  const bool live = sl.b < B;\n  float acc",
+               "  if (B > 0) return;\n  const Slot sl(lanes);\n  const bool live = sl.b < B;\n  float acc"),
+              ("  const Slot sl(lanes);\n  const bool live = sl.b < B;\n  float g[D]",
+               "  if (B > 0) return;\n  const Slot sl(lanes);\n  const bool live = sl.b < B;\n  float g[D]")],
+    "no_math": [(ATTRACT_FWD_MATH, "      acc += w[e] + d2 + mb;\n"),
+                (ATTRACT_BWD_MATH, "      const float q = d2;\n      const float r = mb;\n")],
 }
 
 
@@ -331,6 +366,41 @@ def nomad_probe(device):
     return measure
 
 
+def frozen_probe(device):
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.frozen_attract import ops
+
+    B, k, d = chip_smoke.ATTRACT_SERVE
+    g = torch.Generator(device=device).manual_seed(0)
+    th = torch.randn(B, d, generator=g, device=device) * 3.0
+    nb = torch.randn(B, k, d, generator=g, device=device) * 3.0
+    w = torch.rand(B, k, generator=g, device=device)
+    m = torch.rand(B, generator=g, device=device) * 5.0
+    gbar = torch.rand(B, generator=g, device=device)
+    want = (ops.frozen_attract_fwd_plain(th, nb, w, m), *ops.frozen_attract_bwd_plain(th, nb, w, m, gbar))
+    h = B // 2
+    half = [t[:h].contiguous() for t in (th, nb, w, m)]
+
+    def share(got, w_):
+        rtol, atol = ops.TOL
+        return float(((got - w_).abs() / (atol + rtol * w_.abs())).max())
+
+    def measure():
+        got = (ops.frozen_attract_fwd_cuda(th, nb, w, m), *ops.frozen_attract_bwd_cuda(th, nb, w, m, gbar))
+        torch.cuda.synchronize()
+        return {
+            "lanes": ops.plan(k),
+            "k5f_ms": chip_smoke.device_ms(lambda: ops.frozen_attract_fwd_cuda(th, nb, w, m)),
+            "k5b_ms": chip_smoke.device_ms(lambda: ops.frozen_attract_bwd_cuda(th, nb, w, m, gbar)),
+            "k5f_half_ms": chip_smoke.device_ms(lambda: ops.frozen_attract_fwd_cuda(*half)),
+            **{f"{label}_share": share(a, b) for label, a, b in zip(("loss", "g_theta", "g_m"), got, want)},
+        }
+
+    return measure
+
+
 def sass_mix(entry="nomad_fwd_kernelILi2ELb1E", window=32):
     """Instruction mix of K1's walk as built: ``cuobjdump -sass`` of the
     nomad_step library, in the kernel whose mangled name holds ``entry``
@@ -365,6 +435,11 @@ FAMILIES = {
               # module attributes set while a variant is measured
               "settings": ("repro_torch.kernels.nomad_step.ops",
                            {"chunk1024": {"CHUNK": 1024}, "chunk4096": {"CHUNK": 4096}})},
+    "frozen": {"sources": ("frozen_attract.cu",), "kernels": ("frozen_attract",),
+               "variants": FROZEN_VARIANTS, "probe": frozen_probe, "out": "tile_variants_frozen.json",
+               "settings": ("repro_torch.kernels.frozen_attract.ops",
+                            {"lanes8": {"MAX_LANES": 8}, "lanes32": {"plan": lambda k: 32},
+                             "one_thread": {"MAX_LANES": 1}})},
 }
 
 
