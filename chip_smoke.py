@@ -26,11 +26,20 @@ Phases, each fatal on failure:
    ``checkpoint_dir``, ``NomadProjection.from_checkpoint(dir).transform``
    bit-equal to the fitted estimator's, and the same frozen map served on
    the CPU (plain versions) close to the card's;
-7. the kernel table (the contract line), then the card, then the result.
+7. the stream path: the main path's rows written as a bfloat16 sharded
+   store under ``chiprun_out/`` and fitted from disk in 65,536-row chunks
+   in a child process (its own peak RSS, stage times, launch counts), its
+   map serving 4,096 queries from an ``.npy`` memmap and path bit-equal to
+   the array's; the same rows fitted resident in a second child for its
+   RSS, and here with the same chunks: bit-equal to the store's fit; then
+   the randomized PCA (D 4096) on the card against the CPU. The store and
+   its spill are deleted at the end;
+8. the kernel table (the contract line), then the card, then the result.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the repository's ``src/`` is not beside it. Details of every check
-are written to ``chiprun_out/chip_smoke.json``.
+are written to ``chiprun_out/chip_smoke.json``. ``--child MODE WORK DEVICE
+CONFIG`` is the stream phase's own entry for its child processes.
 """
 
 from __future__ import annotations
@@ -671,41 +680,16 @@ def main_path(device):
     }, x, res
 
 
-def _knn_on_card(a, q_idx, k, device, chunk=256):
-    """Exact k nearest neighbours (self excluded) of rows ``q_idx`` of ``a``."""
-    import torch
-
-    at = torch.as_tensor(a, device=device, dtype=torch.float32)
-    q = torch.as_tensor(q_idx, device=device)
-    out = []
-    for s in range(0, len(q_idx), chunk):
-        qb = q[s : s + chunk]
-        d2 = torch.cdist(at[qb], at, compute_mode="use_mm_for_euclid_dist")
-        d2[torch.arange(len(qb), device=device), qb] = float("inf")
-        out.append(d2.topk(k, largest=False).indices.cpu().numpy())
-    return np.concatenate(out)
-
-
 def embedding_quality(x, emb, device, n_queries=2000, k=10, seed=0):
-    """The repo's quality metrics on the main path's embedding: NP@k over
-    ``n_queries`` queries (exact kNN on the card, both spaces) and random
-    triplet accuracy over 20,000 triplets (as ``repro.metrics`` computes
-    them)."""
+    """The repo's quality metrics on a fit's embedding, through
+    ``repro_torch.metrics``: NP@k over ``n_queries`` queries (exact blocked
+    kNN on the card, both spaces) and random triplet accuracy over 20,000
+    triplets."""
+    from repro_torch.metrics import neighborhood_preservation, random_triplet_accuracy
+
     n = x.shape[0]
-    rng = np.random.default_rng(seed)
-    q = rng.choice(n, size=n_queries, replace=False)
-    hi, lo = _knn_on_card(x, q, k, device), _knn_on_card(emb, q, k, device)
-    np_k = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(hi, lo)]))
-    rng = np.random.default_rng(seed)  # a fresh draw, as random_triplet_accuracy makes
-    i, j, l = (rng.integers(0, n, 20_000) for _ in range(3))
-    ok = (i != j) & (j != l) & (i != l)
-    i, j, l = i[ok], j[ok], l[ok]
-
-    def d2(a, u, v):
-        diff = a[u].astype(np.float32) - a[v].astype(np.float32)
-        return np.sum(diff * diff, -1)
-
-    rta = float(np.mean((d2(x, i, j) < d2(x, i, l)) == (d2(emb, i, j) < d2(emb, i, l))))
+    np_k = neighborhood_preservation(x, emb, k=k, n_queries=n_queries, seed=seed, device=device)
+    rta = random_triplet_accuracy(x, emb, 20_000, seed=seed)
     return {"np10": np_k, "np10_chance": k / n, "rta": rta, "n_queries": n_queries}
 
 
@@ -746,29 +730,20 @@ def epoch_profile(device, cfg, res):
 
 def small_quality(device):
     """The bands of tests/test_nomad_quality.py on its own small mixture,
-    scored here with exact kNN on the card: NP@10 > 10x chance, cluster
-    purity > 0.9."""
-    import torch
-
+    scored through ``repro_torch.metrics`` on the card: NP@10 > 10x chance,
+    cluster purity of the low-dimensional neighbours > 0.9."""
     from repro_torch.configs import NomadConfig
     from repro_torch.core.nomad import NomadProjection
     from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.metrics import exact_knn, neighborhood_preservation
 
     cfg = NomadConfig(n_points=5000, dim=32, n_clusters=8, n_neighbors=15, n_noise=32,
                       n_exact_negatives=8, batch_size=512, n_epochs=25)
     x, labels = gaussian_mixture(5000, 32, n_components=8, seed=0)
     emb = NomadProjection(cfg, device=device).fit(x).embedding
-
-    def knn(a, q_idx, k):
-        a = torch.as_tensor(a, device=device, dtype=torch.float32)
-        d2 = torch.cdist(a[q_idx], a)
-        d2[torch.arange(len(q_idx)), q_idx] = float("inf")
-        return d2.topk(k, largest=False).indices.cpu().numpy()
-
-    q = torch.as_tensor(np.random.default_rng(0).choice(5000, 500, replace=False), device=device)
-    hi, lo = knn(x, q, 10), knn(emb, q, 10)
-    np10 = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(hi, lo)]))
-    purity = float(np.mean(labels[lo] == labels[q.cpu().numpy(), None]))
+    np10 = neighborhood_preservation(x, emb, k=10, n_queries=500, seed=0, device=device)
+    q = np.random.default_rng(0).choice(5000, 500, replace=False)  # the metric's queries
+    purity = float(np.mean(labels[exact_knn(emb, q, 10, device=device)] == labels[q, None]))
     if not (np10 > 10 * 10 / 5000 and purity > 0.9):
         raise AssertionError(f"small fit out of band: NP@10 {np10}, purity {purity}")
     return {"np10": np10, "purity": purity, "np10_floor": 10 * 10 / 5000, "purity_floor": 0.9}
@@ -956,6 +931,243 @@ def checkpoint_roundtrip(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the stream path (fit and serve from an on-disk store)
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK = 65_536  # cfg.chunk_rows: 16 chunks at N = 1M, the last 16,960 rows
+STREAM_SHARD = 65_536  # rows a shard of the bf16 store
+STREAM_Q = 4096  # queries served on the streamed map from an .npy
+RANDOMIZED_PCA = (65_536, 4096)  # N, D of the randomized PCA check (D > 2048)
+STREAM_REDUCED = REDUCED + [
+    "the store holds the main path's rows rounded to bfloat16 (1.54 GB on disk)",
+]
+# a tiny image the children are started from: a child forked straight from
+# this multi-GB process would inherit its RSS as the start of ru_maxrss
+INTERPOSE = "import subprocess, sys; sys.exit(subprocess.run(sys.argv[1:]).returncode)"
+
+
+def stream_config():
+    """The main path's config, fitted from the store in 65,536-row chunks
+    with a bf16 x_rows spill (lossless for bf16-exact rows)."""
+    return main_config().replace(chunk_rows=STREAM_CHUNK, store_dtype="bfloat16")
+
+
+def stream_child(mode: str, work: str, device: str, cfg_json: str) -> int:
+    """One fit in a process of its own, so its ru_maxrss is its own:
+    ``stream`` fits the store directory under ``work`` itself, ``resident``
+    fits the same rows materialised in RAM (chunk_rows 0), both with the
+    config ``cfg_json`` on ``device``. Writes ``<mode>.json`` (and, for
+    ``stream``, the embedding and the store-query checks) under ``work``."""
+    import torch
+
+    from repro_torch.configs import NomadConfig
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.data.store import ShardedStore
+    from repro_torch.index.build import rss_mb
+    from repro_torch.kernels import registry
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    cfg = NomadConfig(**json.loads(cfg_json))
+    store_dir = os.path.join(work, "store")
+    src = store_dir if mode == "stream" else ShardedStore(store_dir).materialize()
+    if mode != "stream":
+        cfg = cfg.replace(chunk_rows=0)
+    if on_card:
+        torch.cuda.init()  # a fresh process: the allocator's statistics need the context
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.ones(1, device=device).sum().item()  # the context's host memory, before the fit
+    rss_before = rss_mb()
+    est = NomadProjection(cfg, device=device)
+    registry.reset_launch_counts()
+    t0 = time.time()
+    res = est.fit(src)
+    wall = time.time() - t0
+    launches = registry.launch_counts()
+    out = {
+        "mode": mode, "build": res.index_build_strategy, "wall_s": wall, "stage_s": res.stage_s,
+        "stage_rss_mb": res.stage_rss_mb, "peak_rss_mb": rss_mb(), "rss_before_fit_mb": rss_before,
+        "peak_device_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
+        "losses": res.losses, "launches": launches, "stragglers": res.index_build_stragglers,
+        "x_rows": type(res.index.x_rows).__name__,
+    }
+    if mode == "stream":
+        np.save(os.path.join(work, "stream_emb.npy"), res.embedding)
+        out["pass_probe"] = pass_probe(ShardedStore(store_dir), cfg.chunk_rows, device)
+        # serving on the streamed map: the same queries as an array, an
+        # .npy memmap and the .npy's path, bit for bit
+        path = os.path.join(work, "q.npy")
+        server = est.map_server()
+        t1 = time.time()
+        want = server.transform(np.load(path), seed=0)
+        out["serve_array_s"] = time.time() - t1
+        for label, q in (("memmap", np.load(path, mmap_mode="r")), ("path", path)):
+            got = server.transform(q, seed=0)
+            out[f"serve_{label}_equal"] = all(
+                np.array_equal(getattr(got, f), getattr(want, f))
+                for f in ("embedding", "cells", "neighbor_ids", "neighbor_dists"))
+        out["serve_finite"] = bool(np.isfinite(want.embedding).all())
+    with open(os.path.join(work, f"{mode}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    return 0
+
+
+def pass_probe(store, chunk_rows: int, device) -> dict:
+    """Seconds of one pass over the store, each way of reading it: loading
+    the shard files alone (``load_s``); reading and decoding the chunks on
+    the host (``read_s``); that and uploading the float32 chunks
+    (``host_decode_to_device_s``); and the way the streamed stages read,
+    the stored bf16 bits uploaded and widened on the card
+    (``to_device_s``, :func:`repro_torch.index.kmeans.device_chunks`)."""
+    import torch
+
+    from repro_torch.data.store import stream_chunks
+    from repro_torch.index.kmeans import device_chunks
+
+    def timed(items):
+        t0 = time.time()
+        for _ in items:
+            pass
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.time() - t0
+
+    return {
+        "load_s": timed(np.load(os.path.join(store.path, f)) for f in store._files),
+        "read_s": timed(stream_chunks(store, chunk_rows)),
+        "host_decode_to_device_s": timed(torch.from_numpy(c).to(device) for _s, c in stream_chunks(store, chunk_rows)),
+        "to_device_s": timed(device_chunks(store, chunk_rows, device)),
+        "chunks": -(-store.shape[0] // chunk_rows),
+    }
+
+
+def run_child(mode: str, work: str, device, cfg) -> dict:
+    """Run :func:`stream_child` in a fresh process; its failure fails the run."""
+    import dataclasses
+
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-c", INTERPOSE, sys.executable, os.path.abspath(__file__), "--child", mode, work,
+         str(device), json.dumps(dataclasses.asdict(cfg))],
+        capture_output=True, text=True, timeout=900,
+    )
+    if r.returncode != 0:
+        raise AssertionError(f"the {mode} child failed (rc {r.returncode}):\n{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+    with open(os.path.join(work, f"{mode}.json")) as f:
+        out = json.load(f)
+    out["process_s"] = time.time() - t0
+    return out
+
+
+def randomized_pca(device):
+    """``pca_init`` and ``pca_init_streamed`` at D 4096 (> 2048: the
+    range-finder) on the card against the port's CPU result, within 1e-4
+    of the largest |θ| after aligning each column's sign, on rows whose top
+    two variances stand far above the rest."""
+    import torch
+
+    from repro_torch.core.pca import pca_init, pca_init_streamed
+    from repro_torch.data.store import ArrayStore
+
+    n, d = RANDOMIZED_PCA
+    rng = np.random.default_rng(3)
+    basis = np.linalg.qr(rng.normal(size=(d, 2)))[0].T
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    x *= 0.1
+    x += (rng.normal(size=(n, 2)) * np.array([6.0, 3.0]) @ basis + 0.5).astype(np.float32)
+    out = {"n": n, "d": d}
+    for label, run in (
+        ("resident", lambda dev: pca_init(torch.from_numpy(x).to(dev)).cpu().numpy()),
+        ("streamed", lambda dev: pca_init_streamed(ArrayStore(x), chunk_rows=8192, device=dev)),
+    ):
+        t0 = time.time()
+        card = run(device)
+        card_s = time.time() - t0
+        cpu = run(torch.device("cpu"))
+        card = card * np.where(np.sum(card * cpu, 0) < 0, -1.0, 1.0)
+        scale = float(np.abs(cpu).max())
+        err = float(np.abs(card - cpu).max())
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"randomized PCA ({label}) on the card vs the CPU: {err} > 1e-4 × {scale}")
+        out[label] = {"max_abs_diff": err, "scale": scale, "card_s": card_s}
+    return out
+
+
+def stream_path(device, x):
+    """Write the main path's rows as a bf16 sharded store under
+    chiprun_out/, fit it streamed in a child process (launch counts, stage
+    times and RSS, store queries ≡ array queries), fit the same rows
+    resident in another child for its RSS, and here fit the materialised
+    rows with the same chunk_rows: bit-equal to the store's fit. Then the
+    randomized PCA check. The store and its spill are deleted at the end."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.data.store import write_sharded
+
+    cfg = stream_config()
+    work = os.path.join(OUT_DIR, "stream")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        t0 = time.time()
+        store = write_sharded(x, os.path.join(work, "store"), rows_per_shard=STREAM_SHARD, dtype="bfloat16")
+        write_s = time.time() - t0
+        np.save(os.path.join(work, "q.npy"), mixture_queries(STREAM_Q, cfg.dim, MAIN_COMPONENTS, seed=2))
+        stream = run_child("stream", work, device, cfg)
+        resident = run_child("resident", work, device, cfg)
+        emb = np.load(os.path.join(work, "stream_emb.npy"))
+
+        rows = store.materialize()
+        t0 = time.time()
+        same = NomadProjection(cfg, device=device).fit(rows)
+        same_s = time.time() - t0
+        if not (np.array_equal(same.embedding, emb) and same.losses == stream["losses"]):
+            bad = int(np.sum(np.any(same.embedding != emb, axis=1)))
+            raise AssertionError(f"fit(store) differs from fit(store.materialize()) at chunk_rows "
+                                 f"{STREAM_CHUNK}: {bad} rows, losses {stream['losses']} vs {same.losses}")
+        if not (emb.shape == (MAIN_N, cfg.out_dim) and np.isfinite(emb).all()):
+            raise AssertionError(f"streamed embedding not finite of shape {(MAIN_N, cfg.out_dim)}")
+        if not stream["losses"][-1] < stream["losses"][0]:
+            raise AssertionError(f"streamed fit's loss did not fall: {stream['losses']}")
+        missing = [n for n in FIT_KERNELS if stream["launches"][n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the stream path: {missing}")
+        if stream["build"] != "streamed" or stream["x_rows"] != "ShardedStore":
+            raise AssertionError(f"the store's fit took the {stream['build']} build ({stream['x_rows']} x_rows)")
+        if not (stream["serve_memmap_equal"] and stream["serve_path_equal"] and stream["serve_finite"]):
+            raise AssertionError("store queries differ from array queries on the streamed map")
+        if not stream["peak_rss_mb"] < resident["peak_rss_mb"]:
+            raise AssertionError(f"streamed fit's peak RSS {stream['peak_rss_mb']} MB is not below the "
+                                 f"resident fit's {resident['peak_rss_mb']} MB")
+        quality = embedding_quality(rows, emb, device)
+        del rows, same
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        pca = randomized_pca(device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {
+        "config": {"chunk_rows": cfg.chunk_rows, "store_dtype": cfg.store_dtype, "rows_per_shard": STREAM_SHARD,
+                   "n_points": cfg.n_points, "n_epochs": cfg.n_epochs},
+        "reduced": STREAM_REDUCED,
+        "store_write_s": write_s,
+        "stream": stream,
+        "resident": {k: resident[k] for k in ("wall_s", "stage_s", "stage_rss_mb", "peak_rss_mb",
+                                               "rss_before_fit_mb", "peak_device_gb", "process_s", "build")},
+        "bit_equal_fit_s": same_s,
+        "fit_store_equals_fit_array": True,
+        "store_queries": STREAM_Q,
+        "store_queries_equal_array": True,
+        "rss_below_resident": True,
+        "quality": quality,
+        "randomized_pca": pca,
+    }
+
+
+# ---------------------------------------------------------------------------
 
 
 CAUCHY_SHAPES = [(512, 1024, 2), (100, 64, 2), (64, 100, 3), (777, 333, 2)]  # the JAX spec's
@@ -1076,8 +1288,11 @@ def main() -> int:
     quality = small_quality(device)
     print(json.dumps({"small_quality": quality}), flush=True)
     serve = serve_path(device, main_config(), fit, x)
-    del x, fit
     print(json.dumps({"serve_path": serve}), flush=True)
+    del fit
+    stream = stream_path(device, x)
+    del x
+    print(json.dumps({"stream_path": stream}), flush=True)
     ckpt = checkpoint_roundtrip(device)
     print(json.dumps({"checkpoint_roundtrip": ckpt}), flush=True)
 
@@ -1090,7 +1305,7 @@ def main() -> int:
             # the count of the path that runs the kernel: the fit for K1-K3,
             # serving for K4/K5; both paths' counts beside it
             "launches": fit_n if name in FIT_KERNELS else serve_n,
-            "launches_by_path": {"fit": fit_n, "serve": serve_n},
+            "launches_by_path": {"fit": fit_n, "serve": serve_n, "stream": stream["stream"]["launches"][name]},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
@@ -1111,7 +1326,7 @@ def main() -> int:
               and port.removesuffix("_fwd").removesuffix("_bwd") in checks}
              for label, where, port in TPU_KERNELS]
     record = {"card": card, "build_s": build_s, "checks": checks, "timing": timing,
-              "main_path": main_res, "small_quality": quality, "serve_path": serve,
+              "main_path": main_res, "small_quality": quality, "serve_path": serve, "stream_path": stream,
               "checkpoint_roundtrip": ckpt, "tpu_kernels": table, "kernels": kernels}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
@@ -1124,4 +1339,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(stream_child(*sys.argv[2:6]))
     sys.exit(main())

@@ -6,11 +6,12 @@ device a tensor lives on, never by a flag. ``dataclasses.asdict`` of this
 config is therefore accepted by the JAX config's constructor, which is how
 the tests build both frameworks from one set of values.
 
-The port runs the local, in-memory fit (``strategy`` "auto"/"local",
-``build_strategy`` "auto"/"local", ``chunk_rows == 0``), its checkpoints
-(``checkpoint_dir``, ``checkpoint_every_epochs``) and local serving
-(``serve_strategy`` "auto"/"local" and the other serve fields). The
-remaining fields are kept so later slices (streaming, multi-GPU, the
+The port runs the local fit (``strategy`` "auto"/"local",
+``build_strategy`` "auto"/"local") from memory or streamed from an on-disk
+store (``chunk_rows``, ``store_dtype``, ``store_max_shards``), its
+checkpoints (``checkpoint_dir``, ``checkpoint_every_epochs``) and local
+serving (``serve_strategy`` "auto"/"local" and the other serve fields).
+The remaining fields are kept so later slices (streaming, multi-GPU, the
 service layer, incremental maps) read the same configuration; the entry
 points raise for values they do not run yet. :meth:`NomadConfig.from_stored`
 reads a config a checkpoint stored, the JAX package's included.
@@ -53,7 +54,9 @@ class NomadConfig:
     build_max_rounds: int = 16  # bidding rounds before host fallback
     build_candidates: int = 32  # nearest-centroid candidates cached per row
 
-    # out-of-core ingestion (not ported yet: must stay 0)
+    # out-of-core ingestion (repro_torch.data.store): rows a streamed stage
+    # reads at once (0 => DEFAULT_CHUNK_ROWS for store inputs, and the
+    # in-memory path for arrays); the dtype and shard cap of the x_rows spill
     chunk_rows: int = 0
     store_dtype: str = "float32"
     store_max_shards: int = 256
@@ -154,6 +157,14 @@ class NomadConfig:
         if self.transform_lr > 0:
             return self.transform_lr
         return self.resolved_lr0() / self.batch_size / max(self.n_epochs, 1)
+
+    def resolved_chunk_rows(self) -> int:
+        """The row-chunk size streamed pipeline stages read stores with."""
+        if self.chunk_rows > 0:
+            return self.chunk_rows
+        from repro_torch.data.store import DEFAULT_CHUNK_ROWS
+
+        return DEFAULT_CHUNK_ROWS
 
     def resolved_steps_per_epoch(self) -> int:
         if self.steps_per_epoch:

@@ -34,9 +34,9 @@ import torch
 
 from repro_torch.configs.base import NomadConfig
 from repro_torch.core import losses
-from repro_torch.core.pca import pca_init
+from repro_torch.core.pca import pca_init, pca_init_streamed
 from repro_torch.index.ann import AnnIndex, data_fingerprint, index_cache_path, load_index, save_index
-from repro_torch.index.build import IndexBuilder, resolve_device, seeded_generator, synchronize
+from repro_torch.index.build import IndexBuilder, resolve_device, rss_mb, seeded_generator, synchronize
 
 # ---------------------------------------------------------------------------
 # Sampling helpers (cluster-major layout)
@@ -153,8 +153,10 @@ class FitResult:
     index_build_s: float = 0.0
     index_build_stragglers: int = 0
     # wall seconds per stage, synchronised with the device: the build's
-    # kmeans / assign / stragglers / permute / knn, then init and epochs
+    # kmeans / assign / stragglers / permute / knn, then init and epochs;
+    # and the process's peak host RSS (MB) at the end of each
     stage_s: dict = dataclasses.field(default_factory=dict)
+    stage_rss_mb: dict = dataclasses.field(default_factory=dict)
     device: str = ""
     # fault tolerance: the first epoch this call ran, whether θ came from a
     # checkpoint, and the epochs checkpointed
@@ -182,32 +184,64 @@ def _config_digest(cfg: NomadConfig) -> dict:
     return d
 
 
-def prepare_inputs(x, dim: Optional[int] = None, caller: str = "fit") -> np.ndarray:
-    """The validation/dtype gate: integer and half inputs are upcast to
-    float32, float64 is rejected, NaN/Inf fail with an actionable error."""
-    x = np.asarray(x)
-    if x.ndim != 2:
-        raise ValueError(f"{caller}: expected a 2-D (n_points, dim) array, got shape {x.shape}")
-    if x.dtype == np.float64:
+def _reject_float64(caller: str, is_float64: bool) -> None:
+    if is_float64:
         raise ValueError(
             f"{caller}: x is float64 — the whole pipeline (index build, "
             "kernels, serving) runs float32; pass x.astype(np.float32) "
             "explicitly so the precision cut is your call, not a silent one"
         )
-    if x.dtype != np.float32:
-        x = x.astype(np.float32)
-    if not np.isfinite(x).all():
-        n_bad = int(np.size(x) - np.isfinite(x).sum())
+
+
+def _check_dim(caller: str, got: int, dim: Optional[int]) -> None:
+    if dim is not None and got != dim:
+        raise ValueError(
+            f"{caller}: x has dim {got} but the fitted map expects "
+            f"dim {dim} — queries must live in the training feature space"
+        )
+
+
+def _check_finite(caller: str, n_bad: int) -> None:
+    if n_bad:
         raise ValueError(
             f"{caller}: x contains {n_bad} non-finite values (NaN/Inf) — "
             "clean or impute before projecting; a single NaN poisons the "
             "k-means statistics and every distance downstream"
         )
-    if dim is not None and x.shape[1] != dim:
-        raise ValueError(
-            f"{caller}: x has dim {x.shape[1]} but the fitted map expects "
-            f"dim {dim} — queries must live in the training feature space"
-        )
+
+
+def prepare_inputs(x, dim: Optional[int] = None, caller: str = "fit", chunk_rows: int = 0):
+    """The validation/dtype gate of ``fit`` and ``transform``: integer and
+    half inputs are upcast to float32, float64 is rejected, NaN/Inf fail
+    with an actionable error.
+
+    Out-of-core inputs (a :class:`repro_torch.data.store.EmbeddingStore`,
+    an ``np.memmap``, or the path of a ``.npy`` file or a sharded-store
+    directory) are validated **per chunk** (``chunk_rows`` rows at a time,
+    default 8192) and returned as a store the caller streams from: neither
+    the cast nor the NaN scan allocates a full-size temporary. In-memory
+    arrays are returned as a float32 ``np.ndarray``.
+    """
+    from repro_torch.data.store import DEFAULT_CHUNK_ROWS, as_store, is_store
+
+    if is_store(x) or isinstance(x, (np.memmap, str, os.PathLike)):
+        st = as_store(x)
+        _reject_float64(caller, st.dtype_name == "float64")
+        _check_dim(caller, st.dim, dim)
+        n_bad = 0
+        for _s, chunk in st.iter_chunks(chunk_rows if chunk_rows > 0 else DEFAULT_CHUNK_ROWS):
+            n_bad += int(chunk.size - np.count_nonzero(np.isfinite(chunk)))
+        _check_finite(caller, n_bad)
+        return st
+
+    x = np.asarray(x)
+    if x.ndim != 2:
+        raise ValueError(f"{caller}: expected a 2-D (n_points, dim) array, got shape {x.shape}")
+    _reject_float64(caller, x.dtype == np.float64)
+    if x.dtype != np.float32:
+        x = x.astype(np.float32)
+    _check_finite(caller, int(np.size(x) - np.count_nonzero(np.isfinite(x))))
+    _check_dim(caller, x.shape[1], dim)
     return x
 
 
@@ -217,9 +251,10 @@ class NomadProjection:
 
     Runs on ``cuda`` unless ``device="cpu"`` is passed; with no card and no
     device named it raises rather than fall back to the CPU. The port runs
-    the local strategy on an in-memory array. With ``cfg.checkpoint_dir``
-    set, ``from_checkpoint(dir).transform(q)`` serves the map without the
-    training array.
+    the local strategy on an in-memory array or streamed from an on-disk
+    store (a store, a memmap, a ``.npy`` path or a store directory). With
+    ``cfg.checkpoint_dir`` set, ``from_checkpoint(dir).transform(q)`` serves
+    the map without the training array.
     """
 
     def __init__(self, cfg: NomadConfig, method: Optional[str] = None, *, device=None):
@@ -257,22 +292,28 @@ class NomadProjection:
 
     def fit(self, x, index: Optional[AnnIndex] = None, *, resume: Optional[bool] = None,
             theta0=None) -> FitResult:
-        """Fit the map. ``index`` (an :class:`AnnIndex`, e.g. loaded from
-        the JAX package's ``index.npz``) skips the build; ``theta0`` (a
-        (K·C, out_dim) array in the index's row layout) replaces the init;
-        ``resume=True`` continues from the latest checkpoint under
-        ``cfg.checkpoint_dir``."""
+        """Fit the map. ``x`` is an in-memory array or a disk-backed corpus
+        (a :class:`repro_torch.data.store.EmbeddingStore`, an ``np.memmap``,
+        or the path of a ``.npy`` file or a store directory); a store input
+        streams through the build and the PCA init, and the epochs never
+        read the corpus. With ``cfg.chunk_rows`` set, ``fit(store)`` and
+        ``fit(ndarray)`` of the same rows are bit-equal. ``index`` (an
+        :class:`AnnIndex`, e.g. loaded from the JAX package's ``index.npz``)
+        skips the build; ``theta0`` (a (K·C, out_dim) array in the index's
+        row layout) replaces the init; ``resume=True`` continues from the
+        latest checkpoint under ``cfg.checkpoint_dir``."""
         from repro_torch.checkpoint import Checkpointer, latest_step
         from repro_torch.core.strategy import LocalStrategy
 
         cfg, device = self.cfg, self.device
-        x = prepare_inputs(x, caller="fit")
+        x = prepare_inputs(x, caller="fit", chunk_rows=cfg.chunk_rows)
         t0 = time.time()
         resume = self._resume_default if resume is None else resume
         ckdir = cfg.checkpoint_dir
         if resume and not ckdir:
             raise ValueError("resume=True needs cfg.checkpoint_dir to be set")
         stage_s: dict = {}
+        stage_rss: dict = {}
 
         # ---- index: argument > on-disk cache > fresh build ----------------
         index_cache = index_cache_path(ckdir) if ckdir else ""
@@ -302,6 +343,7 @@ class NomadProjection:
             build_strategy, build_s = builder.report.strategy, builder.report.total_s
             stragglers = builder.report.stragglers
             stage_s.update(builder.report.stage_s)
+            stage_rss.update(builder.report.stage_rss_mb)
         if index_cache and (cache_stale or not os.path.exists(index_cache)):
             os.makedirs(ckdir, exist_ok=True)
             save_index(index, index_cache)
@@ -330,6 +372,7 @@ class NomadProjection:
         theta = strategy.prepare(cfg, self.method, index, theta0, device)
         synchronize(device)
         stage_s["init"] = time.time() - t_init
+        stage_rss["init"] = rss_mb()
 
         ckpt = Checkpointer(ckdir) if ckdir else None
         every = max(1, cfg.checkpoint_every_epochs)
@@ -358,6 +401,7 @@ class NomadProjection:
                 )
                 checkpoint_epochs.append(e)
         stage_s["epochs"] = time.time() - t_epochs
+        stage_rss["epochs"] = rss_mb()
 
         result = FitResult(
             embedding=index.unpermute(strategy.fetch(theta)),
@@ -369,6 +413,7 @@ class NomadProjection:
             index_build_s=build_s,
             index_build_stragglers=stragglers,
             stage_s=stage_s,
+            stage_rss_mb=stage_rss,
             device=str(device),
             start_epoch=start_epoch,
             resumed=resumed,
@@ -421,10 +466,17 @@ class NomadProjection:
         distances, per-batch latency). Never moves the fitted positions."""
         return self.map_server().transform(x, seed=seed).embedding
 
-    def _init_theta(self, x: np.ndarray, index: AnnIndex) -> np.ndarray:
-        """PCA (or seeded random) init, scattered into the row layout."""
+    def _init_theta(self, x, index: AnnIndex) -> np.ndarray:
+        """PCA (or seeded random) init, scattered into the row layout. A
+        store input, or ``cfg.chunk_rows > 0``, takes the streamed PCA with
+        the build's chunks, so fit(store) ≡ fit(ndarray) stays bit-exact."""
+        from repro_torch.data.store import as_store, is_store
+
         cfg = self.cfg
-        if cfg.init == "pca":
+        if cfg.init == "pca" and (is_store(x) or cfg.chunk_rows > 0):
+            th0 = pca_init_streamed(as_store(x), cfg.out_dim, cfg.init_scale,
+                                    chunk_rows=cfg.resolved_chunk_rows(), device=self.device)
+        elif cfg.init == "pca":
             xd = torch.from_numpy(x).to(self.device)
             th0 = pca_init(xd, cfg.out_dim, cfg.init_scale).cpu().numpy()
             del xd

@@ -1,3 +1,24 @@
-from repro_torch.data.synthetic import gaussian_mixture
+from repro_torch.data.store import (
+    ArrayStore,
+    EmbeddingStore,
+    MemmapStore,
+    ShardedStore,
+    as_store,
+    is_store,
+    stream_chunks,
+    write_sharded,
+)
+from repro_torch.data.synthetic import gaussian_mixture, gaussian_mixture_store
 
-__all__ = ["gaussian_mixture"]
+__all__ = [
+    "ArrayStore",
+    "EmbeddingStore",
+    "MemmapStore",
+    "ShardedStore",
+    "as_store",
+    "gaussian_mixture",
+    "gaussian_mixture_store",
+    "is_store",
+    "stream_chunks",
+    "write_sharded",
+]

@@ -4,7 +4,8 @@
 
 Fields (host numpy arrays, the JAX package's ``AnnIndex`` field for field)
 ------------------------------------------------------------------------
-x_rows     (K·C, D)   permuted input vectors (padding rows = 0)
+x_rows     (K·C, D)   permuted input vectors (padding rows = 0); after a
+                      streamed build from disk, a ShardedStore spill
 knn_idx    (K·C, k)   row indices of kNN tails (self-loop ⇒ masked edge)
 knn_w      (K·C, k)   p(j|i) weights (0 ⇒ edge absent)
 counts     (K,)       real points per cluster
@@ -66,18 +67,24 @@ def index_from_arrays(arrays: dict) -> AnnIndex:
     )
 
 
-def data_fingerprint(x: np.ndarray, n_sample: int = 64, block_rows: int = 65536) -> str:
-    """Content hash of an in-memory ``x``: shape + a deterministic row
-    sample + a float64 column-sum checksum accumulated over fixed
-    ``block_rows`` blocks — the JAX package's hash of the same rows."""
-    n, d = x.shape
+def data_fingerprint(x, n_sample: int = 64, block_rows: int = 65536) -> str:
+    """Content hash of ``x`` (an array or a
+    :class:`repro_torch.data.store.EmbeddingStore`): shape + a deterministic
+    row sample + a float64 column-sum checksum accumulated over fixed
+    ``block_rows`` blocks, whatever the container, so the same rows hash
+    the same in RAM, as a memmap or sharded on disk — and as the JAX
+    package hashes them."""
+    from repro_torch.data.store import as_store, is_store
+
+    st = x if is_store(x) else as_store(np.asarray(x))
+    n, d = st.shape
     idx = np.unique(np.linspace(0, max(n - 1, 0), min(n_sample, n)).astype(np.int64))
     h = hashlib.sha256()
     h.update(repr((n, d)).encode())
-    h.update(np.ascontiguousarray(np.asarray(x[idx], np.float32)).tobytes())
+    h.update(np.ascontiguousarray(st.read_rows(idx), dtype=np.float32).tobytes())
     colsum = np.zeros((d,), np.float64)
     for s in range(0, n, block_rows):
-        colsum += np.asarray(x[s : min(s + block_rows, n)], np.float32).sum(axis=0, dtype=np.float64)
+        colsum += st.read(s, min(s + block_rows, n)).sum(axis=0, dtype=np.float64)
     h.update(np.ascontiguousarray(colsum).tobytes())
     return h.hexdigest()[:16]
 
@@ -89,10 +96,13 @@ def index_cache_path(checkpoint_dir: str) -> str:
 
 
 def save_index(index: AnnIndex, path: str) -> None:
-    """Persist an index as one ``.npz`` in the JAX package's layout."""
-    np.savez(
-        path,
-        x_rows=np.asarray(index.x_rows),
+    """Persist an index as one ``.npz`` in the JAX package's layout. A
+    store-backed ``x_rows`` (the streamed build's spill) is copied chunk by
+    chunk into a float32 ``.npy`` sidecar beside the npz, which records its
+    name: the cache directory stays self-contained."""
+    from repro_torch.data.store import copy_to_npy, is_store
+
+    fields = dict(
         knn_idx=index.knn_idx,
         knn_w=index.knn_w,
         counts=index.counts,
@@ -102,6 +112,13 @@ def save_index(index: AnnIndex, path: str) -> None:
         n_points=index.n_points,
         fingerprint=np.asarray(index.fingerprint),
     )
+    if is_store(index.x_rows):
+        sidecar = os.path.basename(path) + ".x_rows.npy"
+        copy_to_npy(index.x_rows, os.path.join(os.path.dirname(path) or ".", sidecar))
+        fields["x_rows_file"] = np.asarray(sidecar)
+    else:
+        fields["x_rows"] = np.asarray(index.x_rows)
+    np.savez(path, **fields)
 
 
 def load_index(path: str) -> AnnIndex:

@@ -16,6 +16,13 @@
   batched ``pairwise`` kernel, so the (K, C, C) distances never exist at
   once.
 
+A store input (:mod:`repro_torch.data.store`) or ``cfg.chunk_rows > 0``
+selects the streamed build (:meth:`IndexBuilder._build_streamed`): the same
+stages over ``cfg.resolved_chunk_rows()``-row chunks of the corpus, which
+never lands whole in host or device memory. Chunk boundaries depend only on
+(N, chunk_rows), so a store and an array holding the same rows build
+bit-identical indices.
+
 Devices: :class:`IndexBuilder` runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no device named it raises.
 """
@@ -23,6 +30,8 @@ Devices: :class:`IndexBuilder` runs on ``cuda`` unless the caller passes
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import time
 from contextlib import contextmanager
 from typing import Optional
@@ -87,6 +96,21 @@ def candidate_pass(x: torch.Tensor, cents: torch.Tensor, n_cand: int, block: int
     return torch.cat(idx), torch.cat(d2)
 
 
+def streamed_candidates(store, cents: torch.Tensor, n_cand: int, chunk: int, block: int):
+    """:func:`candidate_pass` over a store, chunk by chunk, into a
+    device-resident (N_pad, R) cache, N_pad the row count rounded up to
+    whole chunks. The padding rows' entries are the padded chunk's; the
+    bidding rounds leave them out (``capacity_rounds(n_real=N)``)."""
+    n = store.shape[0]
+    r = min(n_cand, cents.shape[0])
+    n_pad = -(-n // chunk) * chunk
+    cand_idx = torch.zeros((n_pad, r), dtype=torch.int32, device=cents.device)
+    cand_d2 = torch.full((n_pad, r), float("inf"), dtype=torch.float32, device=cents.device)
+    for s, xb, _w in km.device_chunks(store, chunk, cents.device):
+        cand_idx[s : s + chunk], cand_d2[s : s + chunk] = candidate_pass(xb, cents, n_cand, block)
+    return cand_idx, cand_d2
+
+
 def bid_from_candidates(cand_idx, cand_d2, free):
     """Each row's nearest centroid with free capacity (the first free
     candidate); rows whose every candidate is full (``has`` False) sit out."""
@@ -97,19 +121,22 @@ def bid_from_candidates(cand_idx, cand_d2, free):
     return cand_idx[rows, j], cand_d2[rows, j], has
 
 
-def capacity_rounds(cand_idx, cand_d2, n_clusters: int, capacity: int, max_rounds: int):
+def capacity_rounds(cand_idx, cand_d2, n_clusters: int, capacity: int, max_rounds: int,
+                    n_real: Optional[int] = None):
     """Bidding rounds over cached candidates → (assign (N,) int32, -1 for
     stragglers; free (K,) int32). Every round with bidders admits at least
-    one, and the loop stops once no row can bid."""
+    one, and the loop stops once no row can bid. Rows from ``n_real`` on
+    are chunk padding of the streamed cache and never bid."""
     n = cand_idx.shape[0]
     device = cand_idx.device
     assign = torch.full((n,), -1, dtype=torch.int32, device=device)
     free = torch.full((n_clusters,), capacity, dtype=torch.int32, device=device)
+    real = torch.arange(n, device=device) < (n if n_real is None else n_real)
     for _ in range(max_rounds):
-        if not bool(torch.any(assign < 0)):
+        if not bool(torch.any((assign < 0) & real)):
             break
         pick, d2, has = bid_from_candidates(cand_idx, cand_d2, free)
-        bidding = (assign < 0) & has
+        bidding = (assign < 0) & real & has
         if not bool(torch.any(bidding)):
             break
         admitted = capacity_admit(pick, d2, bidding, free)
@@ -118,17 +145,20 @@ def capacity_rounds(cand_idx, cand_d2, n_clusters: int, capacity: int, max_round
     return assign, free
 
 
-def force_place_host(x: np.ndarray, cents: np.ndarray, assign: np.ndarray, free: np.ndarray, chunk: int = 8192):
+def force_place_host(x, cents: np.ndarray, assign: np.ndarray, free: np.ndarray, chunk: int = 8192):
     """Place stragglers (rows unassigned after the rounds) into their
     nearest centroid with space, on the host, chunked to a (chunk, K)
-    distance block."""
+    distance block. ``x`` is an array or a store (rows read with
+    ``read_rows``: one sorted gather a block)."""
+    from repro_torch.data.store import is_store
+
     todo = np.flatnonzero(assign < 0)
     if todo.size == 0:
         return assign, 0
     c = cents.astype(np.float32)
     for s in range(0, todo.size, chunk):
         block = todo[s : s + chunk]
-        a = x[block].astype(np.float32)
+        a = x.read_rows(block) if is_store(x) else x[block].astype(np.float32)
         d2 = np.sum(a**2, -1)[:, None] + np.sum(c**2, -1)[None, :] - 2.0 * a @ c.T
         for t, row in zip(block, np.argsort(d2, axis=1)):
             for cl in row:
@@ -190,6 +220,103 @@ def chunked_cluster_knn(x_rows: np.ndarray, counts: torch.Tensor, C: int, k: int
 
 
 # ---------------------------------------------------------------------------
+# Streamed (out-of-core) stages
+# ---------------------------------------------------------------------------
+
+
+def resolve_spill_dir(cfg: NomadConfig, store) -> str:
+    """Where a streamed build spills the cluster-major ``x_rows`` store.
+
+    ``cfg.checkpoint_dir/x_rows_spill-<tag>`` when the fit owns a
+    checkpoint directory, else a sibling of the input store
+    (``<path>.x_rows-<tag>``). The tag hashes the whole config and the
+    store's path, so a refit with the same config overwrites its own spill
+    (whose bytes it reproduces) while another config gets its own directory
+    and never corrupts the ``x_rows`` a live index reads. Only when neither
+    place is writable does it fall back to a fresh temporary directory.
+    """
+    import hashlib
+    import tempfile
+
+    tag = hashlib.sha256(
+        (repr(sorted(dataclasses.asdict(cfg).items())) + str(store.path)).encode()
+    ).hexdigest()[:8]
+    candidates = []
+    if cfg.checkpoint_dir:
+        candidates.append(os.path.join(cfg.checkpoint_dir, "x_rows_spill-" + tag))
+    if store.path:
+        candidates.append(str(store.path).rstrip("/\\") + ".x_rows-" + tag)
+    for cand in candidates:
+        try:
+            os.makedirs(cand, exist_ok=True)
+            probe = os.path.join(cand, f".write-probe-{os.getpid()}")
+            with open(probe, "w"):
+                pass
+            os.remove(probe)
+            return cand
+        except OSError:
+            continue
+    return tempfile.mkdtemp(prefix="repro-torch-x-rows-")
+
+
+def spill_sharded_scatter(store, perm: np.ndarray, n_rows: int, dim: int, out_dir: str, dtype: str,
+                          chunk_rows: int, rows_per_shard: int = 65536, max_shards: int = 256):
+    """Stream the input store once and scatter ``row i → perm[i]`` into a
+    sharded on-disk store of ``n_rows`` rows in ``dtype``: the cluster-major
+    ``x_rows`` without holding it (or the input) in host RAM. The shard
+    files are created first; each chunk's rows are grouped by destination
+    shard and written with one fancy-indexed slice through a memmap of that
+    shard, unmapped right after, so the written pages leave this process's
+    resident set for the page cache. ``max_shards`` caps the shard count
+    (shards grow instead)."""
+    from repro_torch.data.store import (
+        SHARD_PATTERN,
+        ShardedStore,
+        _commit_meta,
+        _disk_dtype,
+        _encode,
+        bf16_decode,
+        stream_chunks,
+    )
+
+    os.makedirs(out_dir, exist_ok=True)
+    rows_per_shard = max(rows_per_shard, -(-n_rows // max_shards))
+    rows_per_shard = max(1, min(rows_per_shard, n_rows))
+    n_shards = -(-n_rows // rows_per_shard)
+    shard_rows = [min(rows_per_shard, n_rows - j * rows_per_shard) for j in range(n_shards)]
+    starts = np.concatenate([[0], np.cumsum(shard_rows)])
+    files = [SHARD_PATTERN.format(j) for j in range(n_shards)]
+    paths = [os.path.join(out_dir, name) for name in files]
+    for path, rows in zip(paths, shard_rows):  # zero-filled (sparse) shard files
+        np.lib.format.open_memmap(path, mode="w+", dtype=_disk_dtype(dtype), shape=(rows, dim))
+    for s, chunk in stream_chunks(store, chunk_rows, encoded=True):
+        targets = perm[s : s + chunk.shape[0]]
+        order = np.argsort(targets, kind="stable")
+        t_sorted = targets[order]
+        if chunk.dtype == np.uint16:  # bfloat16 bits: copied as they are into a bf16 spill
+            chunk = chunk if dtype == "bfloat16" else bf16_decode(chunk)
+        enc = (chunk if chunk.dtype == np.uint16 else _encode(chunk, dtype))[order]
+        bounds = np.searchsorted(t_sorted, starts)
+        for j in range(n_shards):
+            lo, hi = bounds[j], bounds[j + 1]
+            if lo < hi:
+                mm = np.lib.format.open_memmap(paths[j], mode="r+")
+                mm[t_sorted[lo:hi] - starts[j]] = enc[lo:hi]
+                del mm
+    _commit_meta(out_dir, n_rows, dim, dtype, files, shard_rows)
+    return ShardedStore(out_dir)
+
+
+def rss_mb() -> float:
+    """This process's peak resident set so far (MB): ``ru_maxrss``, which
+    Linux gives in kilobytes and macOS in bytes."""
+    import resource
+
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return rss / (1024.0 * 1024.0) if sys.platform == "darwin" else rss / 1024.0
+
+
+# ---------------------------------------------------------------------------
 # IndexBuilder
 # ---------------------------------------------------------------------------
 
@@ -205,14 +332,18 @@ class BuildReport:
     # "stragglers" is the host force-place the JAX package counts in "assign"
     stage_s: dict
     stragglers: int = 0
+    # the process's peak host RSS (MB) at the end of each stage
+    stage_rss_mb: dict = dataclasses.field(default_factory=dict)
 
 
 class IndexBuilder:
     """Builds the §3.2 :class:`AnnIndex` on one device.
 
     ``device`` defaults to the first CUDA device (raising without one);
-    pass ``device="cpu"`` for the plain path. After ``build`` the per-stage
-    wall times (synchronised with the device) sit in :attr:`report`.
+    pass ``device="cpu"`` for the plain path. ``build`` takes an array, or
+    a store for the streamed build. After it the per-stage wall times
+    (synchronised with the device) and peak host RSS sit in
+    :attr:`report`.
     """
 
     def __init__(self, cfg: NomadConfig, *, device=None):
@@ -220,21 +351,23 @@ class IndexBuilder:
             raise NotImplementedError(
                 f"build_strategy={cfg.build_strategy!r}: only the local build is ported"
             )
-        if cfg.chunk_rows:
-            raise NotImplementedError("chunk_rows > 0 (the streamed build) is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.report: Optional[BuildReport] = None
 
-    def build(self, x: np.ndarray) -> AnnIndex:
-        """Build the index of ``x`` (N, D) float32."""
+    def build(self, x) -> AnnIndex:
+        """Build the index of ``x``: an (N, D) float32 array, or any
+        :class:`repro_torch.data.store.EmbeddingStore`. A store, or
+        ``cfg.chunk_rows > 0``, takes the streamed build."""
+        from repro_torch.data.store import as_store, is_store
+
         cfg, device = self.cfg, self.device
-        n, d = x.shape
-        K, C, k = cfg.n_clusters, cfg.cluster_capacity, cfg.n_neighbors
+        n = x.shape[0]
+        K, C = cfg.n_clusters, cfg.cluster_capacity
         if K * C < n:
             raise ValueError(f"capacity {C}×{K} < N={n}; raise capacity_slack")
-        block = cfg.build_block_rows
         stage_s: dict = {}
+        stage_rss: dict = {}
 
         @contextmanager
         def stage(label):
@@ -242,8 +375,26 @@ class IndexBuilder:
             yield
             synchronize(device)
             stage_s[label] = stage_s.get(label, 0.0) + (time.time() - t0)
+            stage_rss[label] = rss_mb()
 
         t0 = time.time()
+        streamed = is_store(x) or cfg.chunk_rows > 0
+        if streamed:
+            index, stragglers = self._build_streamed(as_store(x), stage)
+        else:
+            index, stragglers = self._build_local(x, stage)
+        self.report = BuildReport(
+            strategy="streamed" if streamed else "local", n_shards=1,
+            total_s=time.time() - t0, stage_s=stage_s, stragglers=stragglers,
+            stage_rss_mb=stage_rss,
+        )
+        return index
+
+    def _build_local(self, x: np.ndarray, stage):
+        cfg, device = self.cfg, self.device
+        n, d = x.shape
+        K, C, k = cfg.n_clusters, cfg.cluster_capacity, cfg.n_neighbors
+        block = cfg.build_block_rows
         xd = torch.from_numpy(np.ascontiguousarray(x)).to(device)
         with stage("kmeans"):
             cents = km.kmeans_centroids(
@@ -270,8 +421,78 @@ class IndexBuilder:
             x_rows[perm] = x
         with stage("knn"):
             knn_local, knn_w = chunked_cluster_knn(x_rows, counts, C, k, device)
-            knn_idx, knn_w = finalize_knn(knn_local, knn_w, K, C)
-        index = AnnIndex(
+        return self._assemble(x, x_rows, knn_local, knn_w, counts, cents_h, perm), stragglers
+
+    def _build_streamed(self, store, stage):
+        """The out-of-core build: every stage reads the corpus as a
+        double-buffered stream of ``cfg.resolved_chunk_rows()``-row chunks
+        (:func:`repro_torch.data.store.stream_chunks`), so host memory holds
+        O(chunk + K·D) of it, plus the O(N·k) graph the build makes. The
+        device holds the (N_pad, R) candidate cache of the assignment
+        (R = ``cfg.build_candidates``), filled chunk by chunk through the
+        ``pairwise`` kernel. A disk-backed input spills the cluster-major
+        ``x_rows`` straight into a sharded store on disk (dtype
+        ``cfg.store_dtype``); an in-memory one scatters into one host
+        buffer. The in-cell kNN then streams ``x_rows`` in whole cells."""
+        from repro_torch.data.store import ArrayStore, stream_chunks
+
+        cfg, device = self.cfg, self.device
+        n, d = store.shape
+        K, C, k = cfg.n_clusters, cfg.cluster_capacity, cfg.n_neighbors
+        chunk = max(1, min(cfg.resolved_chunk_rows(), n))
+        blk = max(1, min(cfg.build_block_rows, chunk))
+
+        with stage("kmeans"):
+            cents = km.kmeans_centroids_streamed(
+                seeded_generator(device, cfg.seed),
+                store,
+                K,
+                chunk_rows=chunk,
+                n_iters=cfg.kmeans_iters,
+                tol=cfg.kmeans_tol,
+                block=cfg.build_block_rows,
+                device=device,
+            )
+        with stage("assign"):
+            cand_idx, cand_d2 = streamed_candidates(store, cents, cfg.build_candidates, chunk, blk)
+            assign_d, free_d = capacity_rounds(cand_idx, cand_d2, K, C, cfg.build_max_rounds, n_real=n)
+            del cand_idx, cand_d2
+        with stage("stragglers"):
+            cents_h = cents.cpu().numpy()
+            assign, stragglers = force_place_host(
+                store, cents_h, assign_d[:n].cpu().numpy().astype(np.int64), free_d.cpu().numpy().copy()
+            )
+        with stage("permute"):
+            perm_d, counts = permutation_from_assign(torch.from_numpy(assign).to(device), K, C)
+            perm = perm_d.cpu().numpy()
+            if store.path is not None:  # disk in, disk out
+                x_rows = spill_sharded_scatter(
+                    store, perm, K * C, d, resolve_spill_dir(cfg, store), cfg.store_dtype, chunk,
+                    max_shards=cfg.store_max_shards,
+                )
+            else:  # an in-memory store: scatter chunk by chunk into one host buffer
+                x_rows = np.zeros((K * C, d), np.float32)
+                for s, ch in store.iter_chunks(chunk):
+                    x_rows[perm[s : s + ch.shape[0]]] = ch
+        with stage("knn"):
+            kc = max(1, chunk // C)  # whole cells a read
+            knn_local = np.empty((K, C, k), np.int32)
+            knn_w = np.empty((K, C, k), np.float32)
+            x_rows_store = x_rows if store.path is not None else ArrayStore(x_rows)
+            slots = torch.arange(C, device=device)
+            for s, rows in stream_chunks(x_rows_store, kc * C, encoded=True):
+                c0, nb = s // C, rows.shape[0] // C
+                xb = km.chunk_to_device(rows, device).reshape(nb, C, d)
+                valid = slots[None, :] < counts[c0 : c0 + nb, None]
+                i, w = batched_cluster_knn(xb, valid, k)
+                knn_local[c0 : c0 + nb] = i.cpu().numpy()
+                knn_w[c0 : c0 + nb] = w.cpu().numpy()
+        return self._assemble(store, x_rows, knn_local, knn_w, counts, cents_h, perm), stragglers
+
+    def _assemble(self, x, x_rows, knn_local, knn_w, counts, cents_h, perm) -> AnnIndex:
+        K, C = self.cfg.n_clusters, self.cfg.cluster_capacity
+        knn_idx, knn_w = finalize_knn(knn_local, knn_w, K, C)
+        return AnnIndex(
             x_rows=x_rows,
             knn_idx=knn_idx,
             knn_w=knn_w,
@@ -279,11 +500,6 @@ class IndexBuilder:
             centroids=cents_h,
             perm=perm,
             capacity=C,
-            n_points=n,
+            n_points=x.shape[0],
             fingerprint=data_fingerprint(x),
         )
-        self.report = BuildReport(
-            strategy="local", n_shards=1, total_s=time.time() - t0,
-            stage_s=stage_s, stragglers=stragglers,
-        )
-        return index

@@ -124,7 +124,7 @@ class FrozenMap:
         inv[index.perm] = np.arange(index.n_points, dtype=np.int64)
         return cls(
             theta_rows=theta,
-            x_rows=torch.as_tensor(np.asarray(index.x_rows), dtype=torch.float32).to(device),
+            x_rows=_x_rows_on(index.x_rows, device),
             centroids=torch.as_tensor(np.asarray(index.centroids), dtype=torch.float32).to(device),
             counts=counts,
             means=local_means(theta, counts, C),
@@ -170,3 +170,19 @@ class FrozenMap:
                 )
             cfg = NomadConfig.from_stored(stored)
         return cls.from_index_theta(index, theta, cfg, device=device)
+
+
+def _x_rows_on(x_rows, device: torch.device, chunk_rows: int = 65536) -> torch.Tensor:
+    """The frozen cluster vectors on ``device`` as float32. A store-backed
+    ``x_rows`` (the streamed build's spill) is copied chunk by chunk into
+    one device tensor, so the host holds one chunk of it at a time."""
+    from repro_torch.data.store import is_store
+    from repro_torch.index.kmeans import chunk_to_device
+
+    if not is_store(x_rows):
+        return torch.as_tensor(np.asarray(x_rows), dtype=torch.float32).to(device)
+    n = x_rows.shape[0]
+    out = torch.empty(x_rows.shape, dtype=torch.float32, device=device)
+    for s in range(0, n, chunk_rows):
+        out[s : s + chunk_rows] = chunk_to_device(x_rows.read_encoded(s, min(s + chunk_rows, n)), device)
+    return out

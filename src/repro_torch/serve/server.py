@@ -4,8 +4,9 @@ The server owns microbatching, padding, latency accounting and result
 assembly; :func:`repro_torch.serve.transform.place_batch` places each
 batch. The port serves on one device: ``strategy`` "local", and "auto",
 which means local on one card. "sharded" (query rows split over several
-cards) raises ``NotImplementedError`` until the multi-GPU slice, and so do
-store, memmap and path queries, which need the out-of-core slice.
+cards) raises ``NotImplementedError`` until the multi-GPU slice. Queries
+may be an array or a disk-backed store (a memmap, a ``.npy`` path or a
+store directory), validated per chunk and read one batch at a time.
 
 Two entry points:
 
@@ -24,7 +25,6 @@ fixed order (``serve/transform.py``).
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from typing import List, Optional, Sequence
 
@@ -131,7 +131,7 @@ class MapServer:
         tb = time.time()
         th, own, ids, dist, sl = place_batch(
             self.frozen,
-            torch.from_numpy(np.ascontiguousarray(qb, np.float32)).to(device),
+            torch.from_numpy(np.require(qb, np.float32, ["C", "W"])).to(device),
             torch.as_tensor(np.asarray(rows, np.int64) & 0xFFFFFFFF, device=device),
             torch.as_tensor(np.asarray(seeds, np.int64) & 0xFFFFFFFF, device=device),
             torch.as_tensor(np.asarray(valid, bool), device=device),
@@ -149,21 +149,24 @@ class MapServer:
 
     def transform(self, q, *, seed: int = 0, return_neighbors: bool = True) -> TransformResult:
         """Place unseen rows on the frozen map. Deterministic per ``seed``
-        and independent of the microbatch. ``return_neighbors=False`` skips
-        the neighbour ids and distances; placements and cells are the same."""
+        and independent of the microbatch. ``q`` is an array or a
+        disk-backed :class:`repro_torch.data.store.EmbeddingStore` (or a
+        memmap, ``.npy`` path or store directory): store queries are
+        validated per chunk and read one batch at a time, so a query log
+        larger than RAM never materialises. ``return_neighbors=False``
+        skips the neighbour ids and distances; placements and cells are the
+        same."""
         from repro_torch.core.nomad import prepare_inputs
+        from repro_torch.data.store import is_store
 
-        if isinstance(q, (str, os.PathLike, np.memmap)) or hasattr(q, "read"):
-            raise NotImplementedError(
-                "store, memmap and path queries are not ported yet: pass an in-memory array"
-            )
-        q = prepare_inputs(q, dim=self.frozen.dim, caller="transform")
+        q = prepare_inputs(q, dim=self.frozen.dim, caller="transform",
+                           chunk_rows=self.frozen.cfg.chunk_rows)
         t0 = time.time()
         nq = q.shape[0]
         B = self.batch_rows
         embs, cells, nids, ndist, lat, bloss = [], [], [], [], [], []
         for s in range(0, max(nq, 1), B):
-            qb = q[s : s + B]
+            qb = q.read(s, min(s + B, nq)) if is_store(q) else q[s : s + B]
             pad = B - qb.shape[0]
             if pad:
                 qb = np.concatenate([qb, np.zeros((pad, q.shape[1]), qb.dtype)])

@@ -129,9 +129,19 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         NomadProjection(SMALL.replace(strategy="sharded"), device="cpu")
     with pytest.raises(NotImplementedError):
-        IndexBuilder(SMALL.replace(chunk_rows=256), device="cpu")
-    with pytest.raises(NotImplementedError):
         MapServer(SimpleNamespace(cfg=SMALL), strategy="sharded")
+    # chunk_rows > 0 is ported: the streamed build of an array equals the
+    # streamed build of the same rows behind the store interface
+    from repro_torch.data.store import ArrayStore
+
+    x, _ = gaussian_mixture(600, 16, n_components=4, seed=2)
+    cfg = SMALL.replace(n_points=600, chunk_rows=256)
+    builder = IndexBuilder(cfg, device="cpu")
+    a = builder.build(x)
+    b = IndexBuilder(cfg, device="cpu").build(ArrayStore(x))
+    assert builder.report.strategy == "streamed"
+    for f in ("x_rows", "knn_idx", "knn_w", "counts", "centroids", "perm"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
 def test_mixture_centers_are_the_mixtures():

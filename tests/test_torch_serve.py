@@ -322,12 +322,14 @@ def test_unported_serving_options_raise(port_fit, data, tmp_path):
         MapServer(fz, strategy="sharded")
     assert resolve_serve_strategy("auto") == resolve_serve_strategy("local") == "local"
     MapServer(fz, strategy="auto")  # local on one card
+    # memmap and path queries are ported: they place as the array does
     path = str(tmp_path / "q.npy")
     np.save(path, q)
-    with pytest.raises(NotImplementedError):
-        MapServer(fz).transform(np.load(path, mmap_mode="r"))
-    with pytest.raises(NotImplementedError):
-        MapServer(fz).transform(path)
+    want = MapServer(fz).transform(q, seed=0)
+    for src in (np.load(path, mmap_mode="r"), path):
+        got = MapServer(fz).transform(src, seed=0)
+        np.testing.assert_array_equal(got.embedding, want.embedding)
+        np.testing.assert_array_equal(got.neighbor_ids, want.neighbor_ids)
     with pytest.raises(ValueError, match="float64"):
         MapServer(fz).transform(q.astype(np.float64))
     with pytest.raises(RuntimeError, match="fitted map"):
