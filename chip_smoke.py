@@ -22,11 +22,19 @@ Phases, each fatal on failure:
    frozen N = 1M map (64 batches of 1024 at 24 steps), with its launch
    counts read around it, bit-equal placements at microbatch 512 and
    1024, training rows that find themselves, and one batch profiled;
-6. a checkpoint round trip at the small fit's size: fit with
+6. growing the map (``partial_path``): ``partial_fit`` of 32,768 new rows
+   of half the mixture's components on the N = 1M map, with every
+   kernel's launch count read around it, the grown layout checked
+   (capacity, perm, rows) and every untouched cell's rows, kNN and θ held
+   bit-identical to the base fit's; then K1 and K4 at the grown K';
+7. a checkpoint round trip at the small fit's size: fit with
    ``checkpoint_dir``, ``NomadProjection.from_checkpoint(dir).transform``
    bit-equal to the fitted estimator's, and the same frozen map served on
-   the CPU (plain versions) close to the card's;
-7. the stream path: the main path's rows written as a bfloat16 sharded
+   the CPU (plain versions) close to the card's; then ``partial_fit`` at
+   that size (``partial_small``): place-only ≡ transform, determinism,
+   the lineage v0 → v1 → v2, store ≡ array growth, the kNN patch in blocks
+   ≡ one batch, and the old rows' quality against a joint refit;
+8. the stream path: the main path's rows written as a bfloat16 sharded
    store under ``chiprun_out/`` and fitted from disk in 65,536-row chunks
    in a child process (its own peak RSS, stage times, launch counts), its
    map serving 4,096 queries from an ``.npy`` memmap and path bit-equal to
@@ -34,7 +42,7 @@ Phases, each fatal on failure:
    RSS, and here with the same chunks: bit-equal to the store's fit; then
    the randomized PCA (D 4096) on the card against the CPU. The store and
    its spill are deleted at the end;
-8. the kernel table (the contract line), then the card, then the result.
+9. the kernel table (the contract line), then the card, then the result.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the repository's ``src/`` is not beside it. Details of every check
@@ -208,8 +216,9 @@ def check_nomad_step(device, shapes, main_shape):
     """K1 forward and backward against the plain versions.
 
     Check shapes: the spec's (rtol, atol) = (2e-5, 2e-5), gbar = 1/B (the
-    batch mean's cotangent, as on the main path). Main shape: every output
-    is a sum over K = 4096 signed terms whose rounding error scales with
+    batch mean's cotangent, as on the main path). At K ≥ 4096 (the main
+    shape, and the 3-chunk plan of a map grown past 4096 cells): every
+    output is a sum over K signed terms whose rounding error scales with
     the summed magnitudes, not the (cancelled) result, so atol is 2e-5 of
     the output's largest magnitude there. At every shape the forward
     without far (no gradient wanted) gives the same loss and m bits as the
@@ -236,7 +245,7 @@ def check_nomad_step(device, shapes, main_shape):
         B, k, S, K, d = shape
         args = nomad_inputs(B, k, S, K, d, device, seed=sum(shape))
         gbar = torch.full((B,), 1.0 / B, device=device)
-        errs = _check_pair(f"nomad_step at {shape}", pair(args, gbar), ops.TOL, shape == main_shape)
+        errs = _check_pair(f"nomad_step at {shape}", pair(args, gbar), ops.TOL, K >= 4096)
         rows.append({"shape": shape, "plan": ops.plan(K), "max_abs_err": errs, "ok": True})
 
     B, k, S, K, d = main_shape
@@ -452,8 +461,10 @@ def check_pairwise(device, shapes, cand_shape, cell_shape, query_shape):
 
 def check_cauchy_mean(device, shapes, main_shape):
     """K4 forward and backward against the plain versions at the JAX spec's
-    check shapes, (rtol, atol) = (1e-5, 1e-6), and at the serving shape
-    (B 1024 against K 4096 means) with atol scaled by the largest output.
+    check shapes, (rtol, atol) = (1e-5, 1e-6), and at K ≥ 4096 (the
+    serving shape, B 1024 against K 4096 means, and a grown map's K 4133,
+    whose chunks of 544 stage a full tile and a tail) with atol scaled by
+    the largest output.
     At the serving shape also: rows [0, B/2) of the call bit-equal to a
     B/2-head call (the K split follows K alone), and heads whose own cell
     is a chunk's first or last mean (each head 0.1 from it, so a term
@@ -480,7 +491,7 @@ def check_cauchy_mean(device, shapes, main_shape):
         outs = pair(*inputs(*shape, seed=sum(shape)))
         torch.cuda.synchronize()
         rows.append({"shape": shape, "plan": ops.plan(shape[1]),
-                     "max_abs_err": _check_pair("cauchy_mean", outs, ops.TOL, shape == main_shape), "ok": True})
+                     "max_abs_err": _check_pair("cauchy_mean", outs, ops.TOL, shape[1] >= 4096), "ok": True})
 
     B, K, d = main_shape
     chunks, chunk_len = ops.plan(K)
@@ -638,7 +649,8 @@ def main_path(device):
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     registry.reset_launch_counts()
-    res = NomadProjection(cfg, device=device).fit(x)
+    est = NomadProjection(cfg, device=device)
+    res = est.fit(x)
     launches = registry.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
 
@@ -677,7 +689,7 @@ def main_path(device):
         "rerun_bit_equal": True,
         "epoch_profile": profile,
         "quality": quality,
-    }, x, res
+    }, x, est, res
 
 
 def embedding_quality(x, emb, device, n_queries=2000, k=10, seed=0):
@@ -750,18 +762,19 @@ def small_quality(device):
 
 
 # ---------------------------------------------------------------------------
-# Phases 5 and 6: serving and the checkpoint round trip
+# Phases 5 and 7: serving and the checkpoint round trip
 # ---------------------------------------------------------------------------
 
 
-def mixture_queries(n, dim, n_components, seed, fit_seed=0, spread=0.15):
+def mixture_queries(n, dim, n_components, seed, fit_seed=0, spread=0.15, labels=None):
     """New rows of the fit's mixture: the centres ``gaussian_mixture`` drew
-    from ``fit_seed``, fresh labels and noise from ``seed``."""
+    from ``fit_seed``, fresh labels (or the given ``labels``) and noise
+    from ``seed``."""
     from repro_torch.data.synthetic import mixture_centers
 
     centers = mixture_centers(np.random.default_rng(fit_seed), n_components, dim)
     rng = np.random.default_rng(seed)
-    labels = rng.integers(0, n_components, n)
+    labels = rng.integers(0, n_components, n) if labels is None else labels
     return (centers[labels] + rng.normal(0, spread / np.sqrt(dim), (n, dim))).astype(np.float32)
 
 
@@ -931,7 +944,260 @@ def checkpoint_roundtrip(device):
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the stream path (fit and serve from an on-disk store)
+# Phase 6: growing the map in place (partial_fit)
+# ---------------------------------------------------------------------------
+
+PARTIAL_COMPONENTS = 2048  # the new rows come from the first half of the mixture's components
+PARTIAL_PER_COMPONENT = 16  # M = 32,768 new rows
+PARTIAL_KERNELS = FIT_KERNELS + SERVE_KERNELS[2:]  # all eight: place, split, kNN patch, refine
+PARTIAL_REDUCED = REDUCED + [
+    "appends: 32,768 new rows of the first 2,048 mixture components in one call (a feed appends in batches)",
+]
+
+
+def _cell_blocks_equal(a, b, C: int, cells: np.ndarray, slab: int = 256) -> np.ndarray:
+    """For each cell of ``cells``, whether its C-row block of ``a`` equals
+    that of ``b`` bit for bit; every cell below the largest is compared, a
+    slab of ``slab`` cells at a time, so no full-size temporary exists."""
+    n = int(cells.max()) + 1 if cells.size else 0
+    eq = np.zeros(n, bool)
+    for lo in range(0, n, slab):
+        hi = min(lo + slab, n)
+        diff = np.asarray(a[lo * C : hi * C]) == np.asarray(b[lo * C : hi * C])
+        eq[lo:hi] = np.all(diff.reshape(hi - lo, -1), axis=1)
+    return eq[cells]
+
+
+def check_grown_k(device, K: int) -> dict:
+    """K1 (a refinement step: B 8192) and K4 (a serving batch: B 1024) at
+    a grown map's K' against their plain versions, atol scaled by the
+    largest output as at K 4096."""
+    import torch
+
+    from repro_torch.kernels.cauchy_mean import ops as k4
+    from repro_torch.kernels.nomad_step import ops as k1
+
+    B, k, S, _, d = NOMAD_MAIN
+    args = nomad_inputs(B, k, S, K, d, device, seed=K)
+    gbar = torch.full((B,), 1.0 / B, device=device)
+    fwd = k1.nomad_step_fwd_cuda(*args, want_far=True)
+    fwd_p = k1.nomad_step_fwd_plain(*args, want_far=True)
+    grads = k1.nomad_step_bwd_cuda(*args[:5], fwd[1], fwd[2], gbar)
+    grads_p = k1.nomad_step_bwd_plain(*args[:5], fwd_p[1], fwd_p[2], gbar)
+    outs = dict(zip(("loss", "m", "far", "g_i", "g_pos", "g_neg"), zip((*fwd, *grads), (*fwd_p, *grads_p))))
+    e1 = _check_pair(f"nomad_step at K' {K}", outs, k1.TOL, True)
+    g = _gen(device, K + 1)
+    th, mu = torch.randn(1024, d, generator=g, device=device) * 3.0, torch.randn(K, d, generator=g, device=device) * 3.0
+    w, own = torch.rand(K, generator=g, device=device), torch.randint(0, K, (1024,), generator=g, device=device,
+                                                                       dtype=torch.int32)
+    gb = torch.rand(1024, generator=g, device=device)
+    outs = {"s": (k4.cauchy_mean_fwd_cuda(th, mu, w, own), k4.cauchy_mean_fwd_plain(th, mu, w, own)),
+            "g_theta": (k4.cauchy_mean_bwd_cuda(th, mu, w, own, gb), k4.cauchy_mean_bwd_plain(th, mu, w, own, gb))}
+    e4 = _check_pair(f"cauchy_mean at K' {K}", outs, k4.TOL, True)
+    torch.cuda.synchronize()
+    return {"K": K, "nomad_step": {"shape": (B, k, S, K, d), "plan": k1.plan(K), "max_abs_err": e1},
+            "cauchy_mean": {"shape": (1024, K, d), "plan": k4.plan(K), "max_abs_err": e4}, "ok": True}
+
+
+def partial_path(device, cfg, est, fit, x):
+    """``est.partial_fit`` of M = 32,768 new rows on the main path's N = 1M
+    map: the rows of the first 2,048 mixture components (16 each), so about
+    half the cells stay untouched; ``cfg.partial_refine_epochs`` refinement
+    epochs, no checkpoint_dir. Every kernel's launches are read around it.
+    Fails unless all eight kernel entries launched, counts ≤ C, perm is a
+    bijection onto the valid rows, x_rows[perm] equals x ∥ y, at least 30%
+    of the original cells are untouched and each of them keeps its x_rows,
+    kNN and θ rows bit for bit, and the new rows' embedding and the
+    refinement losses are finite. Then K1 and K4 at K' against their plain
+    versions. map_stability and NP@10 of the old rows are reported, not
+    gated (the 4-epoch map is near chance)."""
+    import torch
+
+    from repro_torch.kernels import registry
+    from repro_torch.metrics import map_stability
+
+    labels = np.repeat(np.arange(PARTIAL_COMPONENTS), PARTIAL_PER_COMPONENT)
+    y = mixture_queries(labels.size, cfg.dim, MAIN_COMPONENTS, seed=3, labels=labels)
+    N, M = x.shape[0], y.shape[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    registry.reset_launch_counts()
+    pf = est.partial_fit(y, refine_epochs=cfg.partial_refine_epochs)
+    launches = registry.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    t0 = time.time()
+    missing = [n for n in PARTIAL_KERNELS if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the partial path: {missing}")
+    old, idx = fit.index, pf.index
+    C, K, K2 = old.capacity, old.n_clusters, idx.n_clusters
+    if not (idx.capacity == C and (idx.counts <= C).all() and idx.n_points == N + M):
+        raise AssertionError("grown index breaks capacity or the point count")
+    perm = idx.perm
+    valid = np.arange(K2 * C) % C < np.repeat(idx.counts, C)
+    if not (perm.shape == (N + M,) and np.unique(perm).size == N + M and valid[perm].all()
+            and int(valid.sum()) == N + M):
+        raise AssertionError("perm is not a bijection onto the grown layout's valid rows")
+    for s0 in range(0, N + M, 65_536):
+        s1 = min(s0 + 65_536, N + M)
+        want = x[s0:min(s1, N)] if s0 < N else y[s0 - N : s1 - N]
+        if s0 < N < s1:
+            want = np.concatenate([want, y[: s1 - N]])
+        if not np.array_equal(idx.x_rows[perm[s0:s1]], want):
+            raise AssertionError(f"x_rows[perm] differs from x ∥ y in rows [{s0}, {s1})")
+    affected = np.asarray(pf.affected_cells)
+    untouched = np.setdiff1d(np.arange(K), affected)
+    if untouched.size < 0.3 * K:
+        raise AssertionError(f"only {untouched.size} of {K} cells untouched (want >= 30%)")
+    theta_old = np.zeros((K * C, cfg.out_dim), np.float32)
+    theta_old[old.perm] = fit.embedding
+    theta_new = np.zeros((K2 * C, cfg.out_dim), np.float32)
+    theta_new[perm] = pf.embedding
+    for label, a, b in (("x_rows", idx.x_rows, old.x_rows), ("knn_idx", idx.knn_idx, old.knn_idx),
+                        ("knn_w", idx.knn_w, old.knn_w), ("theta", theta_new, theta_old)):
+        same = _cell_blocks_equal(a, b, C, untouched)
+        if not same.all():
+            raise AssertionError(f"{label}: {int((~same).sum())} untouched cells changed")
+    if not (np.isfinite(pf.embedding[N:]).all() and np.isfinite(pf.losses).all()):
+        raise AssertionError("new rows' embedding or refinement losses not finite")
+    checks_s = time.time() - t0
+
+    grown_k = check_grown_k(device, K2)
+    stability = map_stability(fit.embedding, pf.embedding[:N], k=10, n_queries=2000, seed=0, device=device)
+    quality = embedding_quality(x, pf.embedding[:N], device)
+    return {
+        "new_rows": M,
+        "components": PARTIAL_COMPONENTS,
+        "refine_epochs": pf.refine_epochs,
+        "reduced": PARTIAL_REDUCED,
+        "K": K,
+        "K_grown": K2,
+        "n_split_cells": pf.n_split_cells,
+        "n_new_cells": pf.n_new_cells,
+        "affected_cells": int(affected.size),
+        "affected_points": int(idx.counts[affected].sum()),
+        "untouched_cells": int(untouched.size),
+        "refine_steps_per_epoch": -(-int(idx.counts[affected].sum()) // cfg.batch_size),
+        "stage_s": pf.stage_s,
+        "wall_s": pf.wall_time_s,
+        "epoch_s": pf.epoch_times,
+        "losses": pf.losses,
+        "peak_device_gb": peak_gb,
+        "launches": launches,
+        "untouched_bit_identical": True,
+        "checks_s": checks_s,
+        "grown_k_kernels": grown_k,
+        "map_stability_old_rows": stability,
+        "old_rows_quality": quality,
+    }
+
+
+def partial_small(device):
+    """partial_fit at the small fit's size (5000×32, K 8) on the card:
+    place-only ≡ ``MapServer.transform`` bit for bit; two partial fits from
+    one base bit-equal; the lineage fit → v1 → ``from_checkpoint(root).
+    partial_fit`` → v2 (parent v1), whose directory serves bit-equal to the
+    estimator; a store-backed fit and grow (chunk_rows set, float32 store)
+    ≡ the array's; the kNN patch in blocks of cells ≡ one batch; and NP@10
+    of the old rows ≥ a joint refit's − 0.05 (tests/test_partial_fit.py's
+    band)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import MapLineage
+    from repro_torch.configs import NomadConfig
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.data.store import write_sharded
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.index.incremental import affected_cell_knn
+    from repro_torch.metrics import neighborhood_preservation
+    from repro_torch.serve import FrozenMap, MapServer
+
+    work = os.path.join(OUT_DIR, "partial_small")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = NomadConfig(n_points=5000, dim=32, n_clusters=8, n_neighbors=15, n_noise=32,
+                      n_exact_negatives=8, batch_size=512, n_epochs=25)
+    x, _ = gaussian_mixture(5000, 32, n_components=8, seed=0)
+    y, _ = gaussian_mixture(1200, 32, n_components=8, seed=6)
+    y2, _ = gaussian_mixture(700, 32, n_components=8, seed=7)
+    q, _ = gaussian_mixture(1000, 32, n_components=8, seed=8)
+    out = {}
+    try:
+        est = NomadProjection(cfg, device=device)
+        base = est.fit(x)
+        want = est.map_server().transform(y, seed=3).embedding
+        placed = est.partial_fit(y, refine_epochs=0, seed=3)
+        if not (np.array_equal(placed.embedding[5000:], want) and np.array_equal(placed.embedding[:5000],
+                                                                                  base.embedding)):
+            raise AssertionError("partial_fit(refine_epochs=0) differs from MapServer.transform")
+        out["place_only_equals_transform"] = True
+
+        root = os.path.join(work, "lineage")
+        est_a = NomadProjection(cfg, device=device)
+        est_a.fit(x)
+        pf_a = est_a.partial_fit(y)
+        est_b = NomadProjection(cfg.replace(checkpoint_dir=root), device=device)
+        est_b.fit(x)
+        pf_b = est_b.partial_fit(y)
+        if not (np.array_equal(pf_a.embedding, pf_b.embedding) and np.array_equal(pf_a.index.perm, pf_b.index.perm)
+                and pf_a.losses == pf_b.losses):
+            raise AssertionError("two partial fits from one base differ")
+        out["deterministic"] = True
+        out.update(n_split_cells=pf_a.n_split_cells, n_new_cells=pf_a.n_new_cells,
+                   affected_cells=int(pf_a.affected_cells.size), stage_s=pf_a.stage_s, losses=pf_a.losses)
+
+        cold = NomadProjection.from_checkpoint(root, device=device)
+        pf2 = cold.partial_fit(y2)
+        versions = MapLineage(root).load()
+        if not ([v.name for v in versions] == ["v0", "v1", "v2"] and versions[2].parent == "v1"
+                and pf2.parent_version == "v1" and [v.n_points for v in versions] == [5000, 6200, 6900]):
+            raise AssertionError(f"lineage not chained: {[v.to_json() for v in versions]}")
+        served = MapServer(FrozenMap.from_checkpoint(versions[2].path, device=device)).transform(q, seed=0)
+        if not np.array_equal(served.embedding, cold.transform(q, seed=0)):
+            raise AssertionError("the v2 directory's transform differs from the estimator's")
+        out["lineage"] = [v.to_json() for v in versions]
+
+        chunked = cfg.replace(chunk_rows=1024)
+        store = os.path.join(work, "store")
+        write_sharded(x, store, rows_per_shard=1500)
+        est_s = NomadProjection(chunked.replace(checkpoint_dir=os.path.join(work, "ck_store")), device=device)
+        est_s.fit(store)
+        est_m = NomadProjection(chunked, device=device)
+        est_m.fit(x)
+        ps, pm = est_s.partial_fit(y), est_m.partial_fit(y)
+        same = np.array_equal(ps.embedding, pm.embedding) and np.array_equal(
+            ps.index.x_rows.materialize(), np.asarray(pm.index.x_rows))
+        for f in ("perm", "counts", "centroids", "knn_idx", "knn_w"):
+            same &= np.array_equal(getattr(ps.index, f), getattr(pm.index, f))
+        if not (same and type(ps.index.x_rows).__name__ == "ShardedStore"):
+            raise AssertionError("store-backed fit and grow differ from the array's")
+        out["store_equals_array"] = True
+
+        K2, C = pf_a.index.n_clusters, pf_a.index.capacity
+        blocks = list(np.asarray(pf_a.index.x_rows).reshape(K2, C, -1))
+        one = affected_cell_knn(blocks, pf_a.index.counts, cfg.n_neighbors, device, cells_per_launch=K2)
+        few = affected_cell_knn(blocks, pf_a.index.counts, cfg.n_neighbors, device, cells_per_launch=3)
+        if not (np.array_equal(one[0], few[0]) and np.array_equal(one[1], few[1])):
+            raise AssertionError("the kNN patch in blocks of 3 cells differs from one batch")
+        out["knn_blocks_equal_one_batch"] = True
+
+        joint = NomadProjection(cfg.replace(n_points=6200), device=device).fit(np.vstack([x, y]))
+        np_partial = neighborhood_preservation(x, pf_a.embedding[:5000], k=10, n_queries=500, device=device)
+        np_joint = neighborhood_preservation(x, joint.embedding[:5000], k=10, n_queries=500, device=device)
+        if not np_partial >= np_joint - 0.05:
+            raise AssertionError(f"NP@10 of the old rows {np_partial} below the joint refit's {np_joint} - 0.05")
+        out.update(np10_old_rows=np_partial, np10_joint=np_joint)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the stream path (fit and serve from an on-disk store)
 # ---------------------------------------------------------------------------
 
 STREAM_CHUNK = 65_536  # cfg.chunk_rows: 16 chunks at N = 1M, the last 16,960 rows
@@ -1170,12 +1436,14 @@ def stream_path(device, x):
 # ---------------------------------------------------------------------------
 
 
-CAUCHY_SHAPES = [(512, 1024, 2), (100, 64, 2), (64, 100, 3), (777, 333, 2)]  # the JAX spec's
+# the JAX spec's, then K past 4096 as a map grown by partial_fit has it
+CAUCHY_SHAPES = [(512, 1024, 2), (100, 64, 2), (64, 100, 3), (777, 333, 2), (1024, 4133, 2)]
 CAUCHY_SERVE = (1024, 4096, 2)  # serve_microbatch queries against K means
 ATTRACT_SHAPES = [(512, 15, 2), (64, 8, 2), (100, 5, 3), (777, 15, 2)]  # the JAX spec's
 ATTRACT_SERVE = (1024, 15, 2)
 ATTRACT_WIDE = (64, 40, 4)  # k past a warp's 32 lanes: two neighbours a lane
-NOMAD_SHAPES = [(512, 15, 16, 64, 2), (100, 5, 4, 33, 2), (64, 3, 8, 100, 3), (777, 15, 16, 130, 2)]
+NOMAD_SHAPES = [(512, 15, 16, 64, 2), (100, 5, 4, 33, 2), (64, 3, 8, 100, 3), (777, 15, 16, 130, 2),
+                (1024, 15, 16, 4133, 2)]  # the JAX spec's, then the 3-chunk plan of a grown map
 NOMAD_MAIN = (8192, 15, 16, 4096, 2)
 KMEANS_SHAPES = [(512, 256, 64), (1000, 17, 32), (64, 512, 128), (513, 255, 48)]
 KMEANS_MAIN = (16384, 4096, 768)
@@ -1283,18 +1551,26 @@ def main() -> int:
 
     build_s, checks, timing = kernel_phases(device)
 
-    main_res, x, fit = main_path(device)
+    main_res, x, est, fit = main_path(device)
     print(json.dumps({"main_path": main_res}), flush=True)
     quality = small_quality(device)
     print(json.dumps({"small_quality": quality}), flush=True)
     serve = serve_path(device, main_config(), fit, x)
     print(json.dumps({"serve_path": serve}), flush=True)
-    del fit
+    t0 = time.time()
+    partial = partial_path(device, main_config(), est, fit, x)
+    partial["phase_s"] = time.time() - t0
+    print(json.dumps({"partial_path": partial}), flush=True)
+    del est, fit
     stream = stream_path(device, x)
     del x
     print(json.dumps({"stream_path": stream}), flush=True)
     ckpt = checkpoint_roundtrip(device)
     print(json.dumps({"checkpoint_roundtrip": ckpt}), flush=True)
+    t0 = time.time()
+    small_partial = partial_small(device)
+    small_partial["phase_s"] = time.time() - t0
+    print(json.dumps({"partial_small": small_partial}), flush=True)
 
     kernels = []
     for name in FIT_KERNELS + SERVE_KERNELS[2:]:
@@ -1305,7 +1581,8 @@ def main() -> int:
             # the count of the path that runs the kernel: the fit for K1-K3,
             # serving for K4/K5; both paths' counts beside it
             "launches": fit_n if name in FIT_KERNELS else serve_n,
-            "launches_by_path": {"fit": fit_n, "serve": serve_n, "stream": stream["stream"]["launches"][name]},
+            "launches_by_path": {"fit": fit_n, "serve": serve_n, "partial": partial["launches"][name],
+                                 "stream": stream["stream"]["launches"][name]},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
@@ -1326,8 +1603,9 @@ def main() -> int:
               and port.removesuffix("_fwd").removesuffix("_bwd") in checks}
              for label, where, port in TPU_KERNELS]
     record = {"card": card, "build_s": build_s, "checks": checks, "timing": timing,
-              "main_path": main_res, "small_quality": quality, "serve_path": serve, "stream_path": stream,
-              "checkpoint_roundtrip": ckpt, "tpu_kernels": table, "kernels": kernels}
+              "main_path": main_res, "small_quality": quality, "serve_path": serve, "partial_path": partial,
+              "stream_path": stream, "checkpoint_roundtrip": ckpt, "partial_small": small_partial,
+              "tpu_kernels": table, "kernels": kernels}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     print(json.dumps({"tpu_kernels": table}))

@@ -18,7 +18,11 @@ its index there (``index.npz``) and writes θ every
 ``checkpoint_every_epochs`` epochs in the JAX package's checkpoint format;
 ``fit(resume=True)`` and :meth:`NomadProjection.from_checkpoint` continue
 from the latest one, and :meth:`NomadProjection.transform` serves the map
-(``repro_torch.serve``).
+(``repro_torch.serve``). :meth:`NomadProjection.partial_fit` grows a fitted
+map in place with appended rows (:func:`sample_partial_rows` draws the
+refinement epochs' heads from the cells the append touched), and with a
+``checkpoint_dir`` records each grown map as a version of its lineage
+(``repro_torch.checkpoint.lineage``).
 """
 
 from __future__ import annotations
@@ -115,10 +119,34 @@ def step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, *, cfg, met
     return loss.detach()
 
 
-def run_epoch(theta, idx, cfg: NomadConfig, method: str, steps: int, lr0: float, lr1: float, epoch: int):
+def sample_partial_rows(gen: torch.Generator, idx: dict, cfg: NomadConfig, method: str):
+    """:func:`sample_step_rows` with heads restricted to a cell subset (the
+    JAX package's ``make_partial_step_fn``): heads uniform over the points
+    of ``idx["aff_cells"]`` (their cumulative counts ``aff_cum_counts``,
+    ``aff_total`` points), mapped to global rows through the affected →
+    global cell ids. Negatives are in the head's cell, or for "infonc"
+    uniform over all points."""
+    B, C = cfg.batch_size, cfg.cluster_capacity
+    acum = idx["aff_cum_counts"]
+    u = torch.randint(0, idx["aff_total"], (B,), generator=gen, device=acum.device, dtype=acum.dtype)
+    a = torch.searchsorted(acum, u, right=True)
+    start = torch.where(a > 0, acum[(a - 1).clamp_min(0)], 0)
+    cell = idx["aff_cells"][a]
+    rows = cell * C + (u - start)
+    if method == "infonc":
+        neg_rows, _ = sample_points(gen, B * cfg.n_noise, idx["cum_counts"], C, idx["total"])
+        return rows, cell, neg_rows.reshape(B, cfg.n_noise)
+    return rows, cell, sample_in_cluster(gen, cell, idx["counts"], C, cfg.n_exact_negatives)
+
+
+def run_epoch(theta, idx, cfg: NomadConfig, method: str, steps: int, lr0: float, lr1: float, epoch: int,
+              *, sampler=sample_step_rows, key: Optional[tuple] = None, n_total: Optional[int] = None):
     """Means refreshed every ``cfg.mean_refresh_steps`` (default: once, at
     the start), lr annealed linearly from lr0 towards lr1 over the epoch.
-    Returns (theta, mean loss as a 0-d tensor)."""
+    Step t draws its rows with ``sampler`` from a generator seeded from
+    (*key, epoch, t), ``key`` (seed + 1,) by default. Returns (theta, mean
+    loss as a 0-d tensor)."""
+    key = (cfg.seed + 1,) if key is None else key
     refresh = cfg.mean_refresh_steps or steps
     counts_f = idx["counts"].float()
     means, step_losses = None, []
@@ -126,10 +154,11 @@ def run_epoch(theta, idx, cfg: NomadConfig, method: str, steps: int, lr0: float,
         if t % refresh == 0:
             means = local_means(theta, idx["counts"], cfg.cluster_capacity)
         lr = lr0 + (lr1 - lr0) * (t / steps)
-        gen = seeded_generator(theta.device, cfg.seed + 1, epoch, t)
-        rows, cl, neg_rows = sample_step_rows(gen, idx, cfg, method)
+        gen = seeded_generator(theta.device, *key, epoch, t)
+        rows, cl, neg_rows = sampler(gen, idx, cfg, method)
         step_losses.append(
-            step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, cfg=cfg, method=method)
+            step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, cfg=cfg, method=method,
+                        n_total=n_total)
         )
     return theta, torch.stack(step_losses).mean()
 
@@ -164,6 +193,31 @@ class FitResult:
     resumed: bool = False
     checkpoint_dir: str = ""
     checkpoint_epochs: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class PartialFitResult:
+    """What one :meth:`NomadProjection.partial_fit` call produced."""
+
+    embedding: np.ndarray  # (N_old + M, out_dim) in original ∥ appended order
+    index: AnnIndex  # grown index (K' cells, capacity unchanged)
+    n_new: int  # appended rows admitted this call
+    n_points: int  # total rows after the append
+    losses: list  # refinement epoch mean losses
+    wall_time_s: float = 0.0
+    epoch_times: list = dataclasses.field(default_factory=list)
+    refine_epochs: int = 0
+    # admission provenance
+    affected_cells: np.ndarray = None  # (A,) cells placed into or re-seeded
+    n_split_cells: int = 0  # cells that overflowed and were re-seeded
+    n_new_cells: int = 0  # layout growth (K' - K)
+    # wall seconds of place / admit / patch_knn / patch_rows / refine
+    # (/ version), synchronised with the device
+    stage_s: dict = dataclasses.field(default_factory=dict)
+    # lineage provenance (empty when cfg.checkpoint_dir is unset)
+    version: str = ""
+    parent_version: str = ""
+    checkpoint_dir: str = ""  # the self-contained version directory
 
 
 def _config_digest(cfg: NomadConfig) -> dict:
@@ -254,7 +308,9 @@ class NomadProjection:
     the local strategy on an in-memory array or streamed from an on-disk
     store (a store, a memmap, a ``.npy`` path or a store directory). With
     ``cfg.checkpoint_dir`` set, ``from_checkpoint(dir).transform(q)`` serves
-    the map without the training array.
+    the map without the training array, and ``partial_fit(y)`` grows it by
+    appended rows. Progress streams through the event API
+    (:class:`repro_torch.core.strategy.FitCallbacks`).
     """
 
     def __init__(self, cfg: NomadConfig, method: Optional[str] = None, *, device=None):
@@ -290,8 +346,8 @@ class NomadProjection:
         est._resume_default = True
         return est
 
-    def fit(self, x, index: Optional[AnnIndex] = None, *, resume: Optional[bool] = None,
-            theta0=None) -> FitResult:
+    def fit(self, x, index: Optional[AnnIndex] = None, callback=None, *, callbacks=None,
+            resume: Optional[bool] = None, theta0=None) -> FitResult:
         """Fit the map. ``x`` is an in-memory array or a disk-backed corpus
         (a :class:`repro_torch.data.store.EmbeddingStore`, an ``np.memmap``,
         or the path of a ``.npy`` file or a store directory); a store input
@@ -301,13 +357,24 @@ class NomadProjection:
         :class:`AnnIndex`, e.g. loaded from the JAX package's ``index.npz``)
         skips the build; ``theta0`` (a (K·C, out_dim) array in the index's
         row layout) replaces the init; ``resume=True`` continues from the
-        latest checkpoint under ``cfg.checkpoint_dir``."""
+        latest checkpoint under ``cfg.checkpoint_dir``. Progress streams
+        through ``callbacks`` (a :class:`repro_torch.core.strategy.
+        FitCallbacks` or a sequence of them); ``callback`` is the
+        deprecated bare ``fn(epoch, embedding, loss)``."""
         from repro_torch.checkpoint import Checkpointer, latest_step
-        from repro_torch.core.strategy import LocalStrategy
+        from repro_torch.core.strategy import (
+            CheckpointEvent,
+            EpochEndEvent,
+            EpochStartEvent,
+            LocalStrategy,
+            MeansRefreshEvent,
+            as_callbacks,
+        )
 
         cfg, device = self.cfg, self.device
         x = prepare_inputs(x, caller="fit", chunk_rows=cfg.chunk_rows)
         t0 = time.time()
+        events = as_callbacks(callbacks, callback)
         resume = self._resume_default if resume is None else resume
         ckdir = cfg.checkpoint_dir
         if resume and not ckdir:
@@ -383,6 +450,8 @@ class NomadProjection:
             te = time.time()
             f0 = 1.0 - e / cfg.n_epochs
             f1 = 1.0 - (e + 1) / cfg.n_epochs
+            if events is not None:
+                events.on_epoch_start(EpochStartEvent(e, cfg.n_epochs, lr0 * f0, lr0 * f1, strategy.name))
             theta, mloss = strategy.run_epoch(theta, e, lr0 * f0, lr0 * f1)
             losses_.append(mloss)
             epoch_times.append(time.time() - te)
@@ -400,6 +469,12 @@ class NomadProjection:
                     },
                 )
                 checkpoint_epochs.append(e)
+                if events is not None:
+                    events.on_checkpoint(CheckpointEvent(e, e, ckdir, strategy.n_shards))
+            if events is not None:
+                events.on_means_refresh(MeansRefreshEvent(e, strategy.refreshes_per_epoch(), strategy.name))
+                emb_e = index.unpermute(strategy.fetch(theta)) if events.wants_embedding else None
+                events.on_epoch_end(EpochEndEvent(e, cfg.n_epochs, mloss, epoch_times[-1], strategy.name, emb_e))
         stage_s["epochs"] = time.time() - t_epochs
         stage_rss["epochs"] = rss_mb()
 
@@ -422,6 +497,200 @@ class NomadProjection:
         )
         self._fit_result = result
         self._frozen = None  # a refit invalidates any frozen state
+        self._server = None
+        return result
+
+    # -- incremental growth (append-only corpora) ----------------------------
+
+    def _previous_state(self):
+        """(index, theta_rows) of the map being grown: the fit (or partial
+        fit) of this process, else the newest lineage version under
+        ``cfg.checkpoint_dir`` (the root itself for a checkpoint written
+        before any ``partial_fit``). Growing from a checkpoint needs no
+        access to the original corpus: its rows are the index's
+        ``x_rows``."""
+        from repro_torch.checkpoint import MapLineage, latest_step, load_theta
+
+        cfg = self.cfg
+        if self._fit_result is not None:
+            index = self._fit_result.index
+            theta_rows = np.zeros((index.n_clusters * index.capacity, cfg.out_dim), np.float32)
+            theta_rows[index.perm] = self._fit_result.embedding
+            return index, theta_rows
+        if not cfg.checkpoint_dir:
+            raise RuntimeError(
+                "partial_fit needs a fitted map: call fit(x) first, or load one with "
+                "NomadProjection.from_checkpoint(dir)"
+            )
+        base = MapLineage(cfg.checkpoint_dir).latest()
+        base_dir = base.path if base is not None else cfg.checkpoint_dir
+        cache = index_cache_path(base_dir)
+        if not os.path.exists(cache) or latest_step(base_dir) is None:
+            raise RuntimeError(
+                f"partial_fit: {base_dir} holds no fitted map (need both index.npz and a "
+                "step_*/ checkpoint): run fit(x) with cfg.checkpoint_dir set first"
+            )
+        theta_rows, _meta = load_theta(base_dir)
+        return load_index(cache), theta_rows
+
+    def partial_fit(self, new_x, *, callbacks=None, refine_epochs: Optional[int] = None,
+                    seed: Optional[int] = None) -> PartialFitResult:
+        """Grow the fitted map in place with appended rows (no refit).
+
+        **Place** ``new_x`` on the frozen map through the serve path
+        (initial positions and nearest-centroid target cells) → **admit**
+        them into capacity-bounded cells, re-seeding only cells that
+        overflow, and **patch** the in-cell kNN graph and ``x_rows`` of the
+        affected cells (:mod:`repro_torch.index.incremental`) → **refine**
+        with ``refine_epochs`` (default ``cfg.partial_refine_epochs``)
+        cheap epochs whose heads are drawn from the affected cells only
+        (:class:`repro_torch.core.strategy.PartialRefineStrategy`) →
+        **version**: with ``cfg.checkpoint_dir`` set, a self-contained
+        ``vN/`` directory (θ checkpoint and index cache) recorded in the
+        ``versions.json`` lineage. Afterwards the estimator serves (and
+        grows) the new map.
+
+        Rows in cells the append never touches keep bit-identical
+        positions; appending 0 rows changes nothing and writes nothing.
+        ``seed`` seeds the placement (default ``cfg.seed``).
+        """
+        from repro_torch.checkpoint import Checkpointer, MapLineage
+        from repro_torch.core.strategy import EpochEndEvent, EpochStartEvent, PartialRefineStrategy, as_callbacks
+        from repro_torch.data.store import is_store
+        from repro_torch.index.incremental import admit_and_patch
+        from repro_torch.serve import FrozenMap, MapServer
+
+        cfg, device = self.cfg, self.device
+        t0 = time.time()
+        events = as_callbacks(callbacks, None)
+        index, theta_rows = self._previous_state()
+        if index.capacity != cfg.cluster_capacity:
+            raise ValueError(
+                f"partial_fit: index capacity {index.capacity} != cfg.cluster_capacity "
+                f"{cfg.cluster_capacity}: partial_fit runs with the config the map was fitted "
+                "with (capacity is fixed for the life of a map)"
+            )
+        new_x = prepare_inputs(new_x, dim=int(index.x_rows.shape[1]), caller="partial_fit")
+        if is_store(new_x):
+            new_x = new_x.materialize()  # appends are batch-sized, not corpus-sized
+        M, n_old = int(new_x.shape[0]), index.n_points
+        lineage = MapLineage(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+
+        if M == 0:  # the no-op: nothing changes, nothing is written
+            latest = lineage.latest() if lineage is not None else None
+            name = latest.name if latest is not None else ""
+            return PartialFitResult(
+                embedding=index.unpermute(theta_rows), index=index, n_new=0, n_points=n_old,
+                losses=[], wall_time_s=time.time() - t0, affected_cells=np.zeros((0,), np.int64),
+                version=name, parent_version=name,
+            )
+
+        # ---- place: the frozen map's serve path ---------------------------
+        t_place = time.time()
+        placed = MapServer(FrozenMap.from_index_theta(index, theta_rows, cfg, device=device)).transform(
+            new_x, seed=cfg.seed if seed is None else seed, return_neighbors=False
+        )
+        stage_s = {"place": time.time() - t_place}
+
+        # ---- version bookkeeping (the directory precedes a store spill) ---
+        version_name, parent_name, version_dir = "", "", ""
+        if lineage is not None:
+            if not lineage.exists():  # a checkpoint from before any partial_fit becomes v0
+                lineage.record(name="v0", dirname=".", parent="", fingerprint=index.fingerprint,
+                               n_points=n_old, kind="fit")
+            parent_name = lineage.latest().name
+            version_name = lineage.next_name()
+            version_dir = os.path.join(cfg.checkpoint_dir, version_name)
+            os.makedirs(version_dir, exist_ok=True)
+
+        # ---- admit and patch ---------------------------------------------
+        spill_dir = None
+        if is_store(index.x_rows):
+            if version_dir:
+                spill_dir = os.path.join(version_dir, "x_rows_store")
+            else:
+                import tempfile
+
+                spill_dir = tempfile.mkdtemp(prefix="repro-torch-partial-spill-")
+        upd = admit_and_patch(index, theta_rows, new_x, placed.cells, placed.embedding, cfg,
+                              device=device, spill_dir=spill_dir)
+        stage_s.update(upd.stage_s)
+
+        # ---- refine: cheap epochs over the affected cells -----------------
+        t_refine = time.time()
+        refine_epochs = cfg.partial_refine_epochs if refine_epochs is None else refine_epochs
+        losses_, epoch_times = [], []
+        if refine_epochs > 0 and upd.affected_cells.size:
+            strategy = PartialRefineStrategy(upd.affected_cells)
+            theta = strategy.prepare(cfg, self.method, upd.index, upd.theta_rows, device)
+            # from the last fit epoch's lr scale, annealed to 0 again
+            lr_r = cfg.resolved_lr0() / max(cfg.n_epochs, 1)
+            for e in range(refine_epochs):
+                te = time.time()
+                f0 = 1.0 - e / refine_epochs
+                f1 = 1.0 - (e + 1) / refine_epochs
+                if events is not None:
+                    events.on_epoch_start(EpochStartEvent(e, refine_epochs, lr_r * f0, lr_r * f1, strategy.name))
+                theta, mloss = strategy.run_epoch(theta, e, lr_r * f0, lr_r * f1)
+                losses_.append(mloss)
+                epoch_times.append(time.time() - te)
+                if events is not None:
+                    emb_e = upd.index.unpermute(strategy.fetch(theta)) if events.wants_embedding else None
+                    events.on_epoch_end(
+                        EpochEndEvent(e, refine_epochs, mloss, epoch_times[-1], strategy.name, emb_e)
+                    )
+            theta_new = strategy.fetch(theta)
+        else:
+            theta_new = upd.theta_rows
+        stage_s["refine"] = time.time() - t_refine
+
+        # ---- version: a self-contained directory and its lineage entry ----
+        if lineage is not None:
+            t_version = time.time()
+            step = max(refine_epochs - 1, 0)
+            Checkpointer(version_dir, keep=2).save(
+                step,
+                {"theta": theta_new},
+                metadata={
+                    "epoch": step,
+                    "config": dataclasses.asdict(cfg),
+                    "method": self.method,
+                    "strategy": "partial",
+                    "losses": list(losses_),
+                    "parent_version": parent_name,
+                },
+            )
+            save_index(upd.index, index_cache_path(version_dir))
+            lineage.record(name=version_name, dirname=version_name, parent=parent_name,
+                           fingerprint=upd.index.fingerprint, n_points=upd.index.n_points,
+                           kind="partial_fit")
+            stage_s["version"] = time.time() - t_version
+
+        emb = upd.index.unpermute(theta_new)
+        result = PartialFitResult(
+            embedding=emb,
+            index=upd.index,
+            n_new=M,
+            n_points=upd.index.n_points,
+            losses=losses_,
+            wall_time_s=time.time() - t0,
+            epoch_times=epoch_times,
+            refine_epochs=refine_epochs,
+            affected_cells=upd.affected_cells,
+            n_split_cells=upd.n_split_cells,
+            n_new_cells=upd.n_new_cells,
+            stage_s=stage_s,
+            version=version_name,
+            parent_version=parent_name,
+            checkpoint_dir=version_dir,
+        )
+        # the estimator now serves (and grows) the new map
+        self._fit_result = FitResult(
+            embedding=emb, index=upd.index, losses=losses_, wall_time_s=result.wall_time_s,
+            epoch_times=epoch_times, strategy="partial", index_build_strategy="incremental",
+            device=str(device), checkpoint_dir=version_dir,
+        )
+        self._frozen = None
         self._server = None
         return result
 

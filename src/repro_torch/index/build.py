@@ -171,6 +171,24 @@ def force_place_host(x, cents: np.ndarray, assign: np.ndarray, free: np.ndarray,
     return assign, int(todo.size)
 
 
+def capacity_assign_device(x: np.ndarray, cents: np.ndarray, capacity: int, *, device, block: int = 16384,
+                           max_rounds: int = 16, n_cand: int = 32) -> np.ndarray:
+    """Capacity-bounded assignment of host rows ``x`` to ``cents`` in one
+    call (the JAX package's ``capacity_assign_device``): the candidate pass
+    and the bidding rounds on ``device``, then the host straggler pass.
+    Unassigned rows bid for their nearest centroid with free capacity; each
+    centroid admits its ``free`` closest bidders, ties to the lower row.
+    Returns ``assign`` (N,) int64."""
+    xd = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    cd = torch.from_numpy(np.ascontiguousarray(cents, np.float32)).to(device)
+    cand_idx, cand_d2 = candidate_pass(xd, cd, n_cand, block)
+    assign, free = capacity_rounds(cand_idx, cand_d2, cd.shape[0], capacity, max_rounds)
+    assign, _ = force_place_host(
+        np.asarray(x), np.asarray(cents), assign.cpu().numpy().astype(np.int64), free.cpu().numpy().copy()
+    )
+    return assign
+
+
 # ---------------------------------------------------------------------------
 # Cluster-major permutation and kNN assembly
 # ---------------------------------------------------------------------------

@@ -39,6 +39,9 @@ from repro_torch.kernels.nomad_step import ops  # noqa: E402
 
 SPEC_SHAPES = [(512, 15, 16, 64, 2), (100, 5, 4, 33, 2), (64, 3, 8, 100, 3), (777, 15, 16, 130, 2)]
 MAIN_SHAPE = (8192, 15, 16, 4096, 2)  # a step of the PubMed fit: batch_size heads against K means
+# a refinement step on a map grown by partial_fit: K' past 4096 gives the
+# 3-chunk plan (chunks of 1408, the last 1317 means)
+GROWN_SHAPE = (1024, 15, 16, 4133, 2)
 HEAD_ARGS = (0, 1, 2, 3, 4, 7, 8)  # the inputs of _inputs with one row a head
 _REF_GRAD = jax.jit(jax.grad(lambda *a: jnp.sum(a[-1] * nomad_step_ref(*a[:-1])), argnums=(0, 1, 3)))
 
@@ -218,7 +221,7 @@ def test_plan_covers_K_contiguously(K):
 
 
 @pytest.mark.parametrize("K,want", [(4096, (2, 2048)), (130, (1, 160)), (33, (1, 64)), (2049, (2, 1056)),
-                                    (65536, (8, 8192))])
+                                    (65536, (8, 8192)), (4133, (3, 1408))])
 def test_plan_examples(K, want):
     """CHUNK means a block up to the cluster's 8, longer chunks beyond;
     ragged K gives a short last chunk."""
@@ -232,20 +235,20 @@ def test_plan_depends_on_K_alone():
     assert all(ops.plan(4096) == (2, 2048) for _ in range(3))
 
 
-@pytest.mark.parametrize("shape", SPEC_SHAPES + [MAIN_SHAPE], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", SPEC_SHAPES + [MAIN_SHAPE, GROWN_SHAPE], ids=lambda s: "x".join(map(str, s)))
 def test_emulated_order_matches_jax_oracle(shape):
     """The forward's loss against ``nomad_step_ref`` and the backward
     (residuals m and far from the emulated forward) against ``jax.grad``,
-    within the spec's (2e-5, 2e-5); at the main shape atol is scaled by
-    the output's largest magnitude, as ``chip_smoke.py`` holds the card
-    there (a sum over K = 4096 signed terms rounds with the summed
+    within the spec's (2e-5, 2e-5); at the main shape and at K' 4133 atol
+    is scaled by the output's largest magnitude, as ``chip_smoke.py`` holds
+    the card there (a sum over K ≥ 4096 signed terms rounds with the summed
     magnitudes, not with the cancelled result)."""
     args = _inputs(*shape, seed=sum(shape))
     want = _oracle(args)
     t = [torch.from_numpy(a) for a in args]
     loss, m, far = emulate_fwd(*t[:8])
     grads = emulate_bwd(*t[:5], m, far, t[8])
-    scaled = shape == MAIN_SHAPE
+    scaled = shape in (MAIN_SHAPE, GROWN_SHAPE)
     for got, w, label in zip((loss, *grads), want, ("loss", "g_i", "g_pos", "g_neg")):
         _assert_close(got.numpy(), w, scaled, label)
 
