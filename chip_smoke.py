@@ -999,6 +999,40 @@ def check_grown_k(device, K: int) -> dict:
             "cauchy_mean": {"shape": (1024, K, d), "plan": k4.plan(K), "max_abs_err": e4}, "ok": True}
 
 
+def check_split_cell(device, old, idx) -> dict:
+    """K2 and K3 on one real split of the grow: the first original cell
+    one of whose old rows moved to an appended cell, with every cell that
+    holds its old rows (itself and its sub-cells). Their members against
+    their centroids, on the card and in the plain versions, at the kernel
+    phase's rules: K2's oracle rule, K3's scaled bound at D 768."""
+    import torch
+
+    from repro_torch.kernels.kmeans_assign import ops as k2
+    from repro_torch.kernels.pairwise import ops as k3
+
+    C, K, N = old.capacity, old.n_clusters, old.n_points
+    cell_old, cell_new = np.asarray(old.perm) // C, np.asarray(idx.perm[:N]) // C
+    moved = np.flatnonzero(cell_new >= K)
+    if moved.size == 0:
+        raise AssertionError("no old row moved to an appended cell: no split to check")
+    c = int(cell_old[moved[0]])
+    group = np.unique(np.concatenate([[c], cell_new[cell_old == c]]))
+    mem = np.concatenate([np.asarray(idx.x_rows[g * C : g * C + int(idx.counts[g])]) for g in group])
+    xd = torch.from_numpy(np.ascontiguousarray(mem, np.float32)).to(device)
+    cd = torch.from_numpy(np.ascontiguousarray(idx.centroids[group], np.float32)).to(device)
+    got, want = k2.assign_nearest_cuda(xd, cd), k2.assign_nearest_plain(xd, cd)
+    d2, d2_plain = k3.pairwise_dist2_cuda(xd, cd), k3.pairwise_dist2_plain(xd, cd)
+    torch.cuda.synchronize()
+    k2.oracle_check(xd, cd, got, want)  # raises on disagreement
+    if not bool(torch.all((d2 - d2_plain).abs() <= k3.allowed_error(xd, cd))):
+        raise AssertionError(f"pairwise disagrees with its plain version on split cell {c}: "
+                             f"{_max_err(d2, d2_plain)}")
+    return {"cell": c, "sub_cells": group.tolist(), "shape": (int(mem.shape[0]), int(group.size), int(mem.shape[1])),
+            "kmeans_assign_max_abs_err": _max_err(got[1], want[1]),
+            "kmeans_assign_argmin_equal_frac": float((got[0] == want[0]).float().mean()),
+            "pairwise_max_abs_err": _max_err(d2, d2_plain), "ok": True}
+
+
 def partial_path(device, cfg, est, fit, x):
     """``est.partial_fit`` of M = 32,768 new rows on the main path's N = 1M
     map: the rows of the first 2,048 mixture components (16 each), so about
@@ -1008,8 +1042,8 @@ def partial_path(device, cfg, est, fit, x):
     bijection onto the valid rows, x_rows[perm] equals x ∥ y, at least 30%
     of the original cells are untouched and each of them keeps its x_rows,
     kNN and θ rows bit for bit, and the new rows' embedding and the
-    refinement losses are finite. Then K1 and K4 at K' against their plain
-    versions. map_stability and NP@10 of the old rows are reported, not
+    refinement losses are finite. Then K1 and K4 at K', and K2 and K3 on a
+    real split cell, against their plain versions. map_stability and NP@10 of the old rows are reported, not
     gated (the 4-epoch map is near chance)."""
     import torch
 
@@ -1064,6 +1098,7 @@ def partial_path(device, cfg, est, fit, x):
     checks_s = time.time() - t0
 
     grown_k = check_grown_k(device, K2)
+    split_cell = check_split_cell(device, old, idx) if pf.n_split_cells else None
     stability = map_stability(fit.embedding, pf.embedding[:N], k=10, n_queries=2000, seed=0, device=device)
     quality = embedding_quality(x, pf.embedding[:N], device)
     return {
@@ -1088,6 +1123,7 @@ def partial_path(device, cfg, est, fit, x):
         "untouched_bit_identical": True,
         "checks_s": checks_s,
         "grown_k_kernels": grown_k,
+        "split_cell_kernels": split_cell,
         "map_stability_old_rows": stability,
         "old_rows_quality": quality,
     }
@@ -1111,7 +1147,7 @@ def partial_small(device):
     from repro_torch.core.nomad import NomadProjection
     from repro_torch.data.store import write_sharded
     from repro_torch.data.synthetic import gaussian_mixture
-    from repro_torch.index.incremental import affected_cell_knn
+    from repro_torch.index.build import chunked_cluster_knn
     from repro_torch.metrics import neighborhood_preservation
     from repro_torch.serve import FrozenMap, MapServer
 
@@ -1178,8 +1214,8 @@ def partial_small(device):
 
         K2, C = pf_a.index.n_clusters, pf_a.index.capacity
         blocks = list(np.asarray(pf_a.index.x_rows).reshape(K2, C, -1))
-        one = affected_cell_knn(blocks, pf_a.index.counts, cfg.n_neighbors, device, cells_per_launch=K2)
-        few = affected_cell_knn(blocks, pf_a.index.counts, cfg.n_neighbors, device, cells_per_launch=3)
+        one = chunked_cluster_knn(blocks, pf_a.index.counts, cfg.n_neighbors, device, cells_per_launch=K2)
+        few = chunked_cluster_knn(blocks, pf_a.index.counts, cfg.n_neighbors, device, cells_per_launch=3)
         if not (np.array_equal(one[0], few[0]) and np.array_equal(one[1], few[1])):
             raise AssertionError("the kNN patch in blocks of 3 cells differs from one batch")
         out["knn_blocks_equal_one_batch"] = True
@@ -1445,10 +1481,13 @@ ATTRACT_WIDE = (64, 40, 4)  # k past a warp's 32 lanes: two neighbours a lane
 NOMAD_SHAPES = [(512, 15, 16, 64, 2), (100, 5, 4, 33, 2), (64, 3, 8, 100, 3), (777, 15, 16, 130, 2),
                 (1024, 15, 16, 4133, 2)]  # the JAX spec's, then the 3-chunk plan of a grown map
 NOMAD_MAIN = (8192, 15, 16, 4096, 2)
-KMEANS_SHAPES = [(512, 256, 64), (1000, 17, 32), (64, 512, 128), (513, 255, 48)]
+# the JAX spec's, then a split's k-means: one cell's ~321 members against
+# n_sub = 2 or 3 sub-cell centroids at D 768
+KMEANS_SHAPES = [(512, 256, 64), (1000, 17, 32), (64, 512, 128), (513, 255, 48), (321, 2, 768), (321, 3, 768)]
 KMEANS_MAIN = (16384, 4096, 768)
 KMEANS_SERVE = (1024, 4096, 768)  # one serve_microbatch of queries against K centroids
-PAIRWISE_SHAPES = [(96, 128, 64), (100, 60, 33), (8, 257, 128), (64, 64, 16)]
+# the JAX spec's, then a split's candidate pass (members × n_sub at D 768)
+PAIRWISE_SHAPES = [(96, 128, 64), (100, 60, 33), (8, 257, 128), (64, 64, 16), (321, 2, 768), (321, 3, 768)]
 PAIRWISE_CAND = (16384, 4096, 768)
 PAIRWISE_CELL = (256, 305, 305, 768)  # 256 cells of capacity 305 against themselves
 PAIRWISE_QUERY = (256, 1, 305, 768)  # serving: a block of 256 queries, each against its cell

@@ -127,12 +127,9 @@ def sample_partial_rows(gen: torch.Generator, idx: dict, cfg: NomadConfig, metho
     global cell ids. Negatives are in the head's cell, or for "infonc"
     uniform over all points."""
     B, C = cfg.batch_size, cfg.cluster_capacity
-    acum = idx["aff_cum_counts"]
-    u = torch.randint(0, idx["aff_total"], (B,), generator=gen, device=acum.device, dtype=acum.dtype)
-    a = torch.searchsorted(acum, u, right=True)
-    start = torch.where(a > 0, acum[(a - 1).clamp_min(0)], 0)
+    rows_a, a = sample_points(gen, B, idx["aff_cum_counts"], C, idx["aff_total"])
     cell = idx["aff_cells"][a]
-    rows = cell * C + (u - start)
+    rows = rows_a + (cell - a) * C
     if method == "infonc":
         neg_rows, _ = sample_points(gen, B * cfg.n_noise, idx["cum_counts"], C, idx["total"])
         return rows, cell, neg_rows.reshape(B, cfg.n_noise)

@@ -219,18 +219,22 @@ def finalize_knn(knn_local: np.ndarray, knn_w: np.ndarray, K: int, C: int):
     return knn_idx, knn_w.astype(np.float32)
 
 
-def chunked_cluster_knn(x_rows: np.ndarray, counts: torch.Tensor, C: int, k: int,
-                        device: torch.device):
-    """In-cell kNN of every cell, KNN_CELL_CHUNK cells per batched launch."""
-    K = counts.shape[0]
-    D = x_rows.shape[1]
-    blocks = x_rows.reshape(K, C, D)
+def chunked_cluster_knn(x_blocks, counts: np.ndarray, k: int, device: torch.device,
+                        cells_per_launch: int = KNN_CELL_CHUNK):
+    """In-cell kNN of a sliceable sequence of (C, D) cell blocks (a
+    (K, C, D) array or a list of blocks) with host ``counts`` real rows
+    each, ``cells_per_launch`` cells a batched launch, so the gathered
+    blocks and their (cells, C, C) distances never exist for every cell at
+    once. Each cell's result does not depend on the cells batched with it.
+    Returns (knn_local (A, C, k) int32 in-cell slots, weights (A, C, k))."""
+    C = x_blocks[0].shape[0]
     slots = torch.arange(C, device=device)
+    cnt = torch.as_tensor(np.asarray(counts), dtype=torch.int64, device=device)
     idx, w = [], []
-    for c0 in range(0, K, KNN_CELL_CHUNK):
-        c1 = c0 + KNN_CELL_CHUNK
-        xb = torch.from_numpy(np.ascontiguousarray(blocks[c0:c1])).to(device).float()
-        valid = slots[None, :] < counts[c0:c1, None]
+    for a0 in range(0, len(x_blocks), cells_per_launch):
+        part = np.ascontiguousarray(x_blocks[a0 : a0 + cells_per_launch])
+        xb = torch.from_numpy(part).to(device).float()
+        valid = slots[None, :] < cnt[a0 : a0 + part.shape[0], None]
         i, ww = batched_cluster_knn(xb, valid, k)
         idx.append(i.cpu().numpy())
         w.append(ww.cpu().numpy())
@@ -438,7 +442,7 @@ class IndexBuilder:
             x_rows = np.zeros((K * C, d), x.dtype)
             x_rows[perm] = x
         with stage("knn"):
-            knn_local, knn_w = chunked_cluster_knn(x_rows, counts, C, k, device)
+            knn_local, knn_w = chunked_cluster_knn(x_rows.reshape(K, C, d), counts.cpu().numpy(), k, device)
         return self._assemble(x, x_rows, knn_local, knn_w, counts, cents_h, perm), stragglers
 
     def _build_streamed(self, store, stage):

@@ -17,8 +17,9 @@ by the serve path, produce the grown index without rebuilding it:
    cell's id, so every other cell's rows stay put; the rest are appended
    at K, K+1, … — K grows, capacity C never changes.
 3. **patch** — the in-cell kNN graph is recomputed for the affected cells
-   only, :data:`~repro_torch.index.build.KNN_CELL_CHUNK` cells a
-   ``pairwise`` launch (the same math as the build); ``x_rows`` is patched
+   only, by the build's own
+   :func:`~repro_torch.index.build.chunked_cluster_knn` (``KNN_CELL_CHUNK``
+   cells a ``pairwise`` launch); ``x_rows`` is patched
    by block copy, or, when it is a store, rewritten into a fresh sharded
    store by two ``write_sharded(commit=False)`` regions and one
    ``commit_sharded_meta``.
@@ -37,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -45,8 +46,7 @@ import torch
 from repro_torch.configs.base import NomadConfig
 from repro_torch.index import kmeans as km
 from repro_torch.index.ann import AnnIndex, data_fingerprint
-from repro_torch.index.build import KNN_CELL_CHUNK, capacity_assign_device, seeded_generator
-from repro_torch.index.knn import batched_cluster_knn
+from repro_torch.index.build import capacity_assign_device, chunked_cluster_knn, seeded_generator
 
 
 @dataclasses.dataclass
@@ -123,28 +123,6 @@ def _patch_store_x_rows(old_store, changed: Dict[int, np.ndarray], K: int, K2: i
     if K2 > K:
         write_sharded((changed[c] for c in range(K, K2)), out_dir, row_offset=K * C, **common)
     return commit_sharded_meta(out_dir, K2 * C, dim, rows_per_shard=rps, dtype=cfg.store_dtype)
-
-
-def affected_cell_knn(x_blocks: Sequence[np.ndarray], counts: np.ndarray, k: int, device,
-                      cells_per_launch: int = KNN_CELL_CHUNK):
-    """In-cell kNN of the given (C, D) host cell blocks with ``counts`` real
-    rows each, ``cells_per_launch`` cells a batched ``pairwise`` launch, so
-    the gathered blocks and their (cells, C, C) distances never exist for
-    every affected cell at once. Each cell's result does not depend on the
-    cells batched with it. Returns (knn_local (A, C, k) int32 in-cell slots,
-    weights (A, C, k) float32)."""
-    C = x_blocks[0].shape[0]
-    slots = torch.arange(C, device=device)
-    cnt = torch.as_tensor(np.asarray(counts), dtype=torch.int64, device=device)
-    idx, w = [], []
-    for a0 in range(0, len(x_blocks), cells_per_launch):
-        part = x_blocks[a0 : a0 + cells_per_launch]
-        xb = torch.from_numpy(np.stack(part)).to(device)
-        valid = slots[None, :] < cnt[a0 : a0 + len(part), None]
-        i, ww = batched_cluster_knn(xb, valid, k)
-        idx.append(i.cpu().numpy())
-        w.append(ww.cpu().numpy())
-    return np.concatenate(idx), np.concatenate(w)
 
 
 def admit_and_patch(index: AnnIndex, theta_rows: np.ndarray, new_x: np.ndarray, new_cells: np.ndarray,
@@ -274,7 +252,8 @@ def admit_and_patch(index: AnnIndex, theta_rows: np.ndarray, new_x: np.ndarray, 
     knn_w2 = np.zeros((K2 * C, k), np.float32)
     knn_w2[: K * C] = index.knn_w
     if affected.size:
-        knn_local, knn_w_aff = affected_cell_knn([changed[int(c)] for c in affected], counts2[affected], k, device)
+        knn_local, knn_w_aff = chunked_cluster_knn([changed[int(c)] for c in affected], counts2[affected], k,
+                                                  device)
         base_rows = (affected * C)[:, None, None]
         self_rows = base_rows + np.arange(C)[None, :, None]
         knn_glob = np.where(knn_w_aff > 0, knn_local.astype(np.int64) + base_rows, self_rows)

@@ -38,8 +38,8 @@ from repro_torch.core.strategy import PartialRefineStrategy  # noqa: E402
 from repro_torch.data.store import ShardedStore  # noqa: E402
 from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
 from repro_torch.index.ann import AnnIndex, index_from_arrays  # noqa: E402
-from repro_torch.index.build import capacity_assign_device, seeded_generator  # noqa: E402
-from repro_torch.index.incremental import admit_and_patch, affected_cell_knn, chained_fingerprint  # noqa: E402
+from repro_torch.index.build import capacity_assign_device, chunked_cluster_knn, seeded_generator  # noqa: E402
+from repro_torch.index.incremental import admit_and_patch, chained_fingerprint  # noqa: E402
 
 CPU = torch.device("cpu")
 CFG = NomadConfig(
@@ -212,11 +212,11 @@ def test_admit_store_backed_matches_jax(base, same_split_centroids, tmp_path):
 def test_knn_patch_in_blocks_equals_one_batch(base):
     _x, jindex, _theta = base
     K = jindex.n_clusters
-    blocks = list(np.asarray(jindex.x_rows).reshape(K, C, CFG.dim))
+    array = np.asarray(jindex.x_rows).reshape(K, C, CFG.dim)
     counts = np.asarray(jindex.counts)
-    one = affected_cell_knn(blocks, counts, CFG.n_neighbors, CPU, cells_per_launch=K)
-    for per in (1, 3):
-        got = affected_cell_knn(blocks, counts, CFG.n_neighbors, CPU, cells_per_launch=per)
+    one = chunked_cluster_knn(list(array), counts, CFG.n_neighbors, CPU, cells_per_launch=K)
+    for blocks, per in ((list(array), 1), (list(array), 3), (array, 3)):  # the patch's list, the build's array
+        got = chunked_cluster_knn(blocks, counts, CFG.n_neighbors, CPU, cells_per_launch=per)
         np.testing.assert_array_equal(got[0], one[0])
         np.testing.assert_array_equal(got[1], one[1])
 

@@ -350,8 +350,14 @@ def jax_grown(tmp_path_factory, quality_data):
 def test_side_by_side_with_jax_partial_fit(quality_data, port_quality, jax_grown):
     """The two frameworks draw other rows, so their maps differ: over three
     seeds, the old rows' mean NP@10 and the mean stability of the map must
-    stay within 0.05 of the JAX package's (one seed's stability moves by
-    ~0.1 with the cells its base fit happens to split)."""
+    stay within 0.05 of the JAX package's. One seed is too few: this test's
+    readings on the CPU (seeds 7, 8, 9) were stability 0.7202, 0.7392,
+    0.7636 for the port and 0.8210, 0.7040, 0.7462 for the JAX package,
+    whose own seed-to-seed spread (0.117) exceeds the largest gap between
+    the two on one seed (0.101 at seed 7); NP@10 0.1042, 0.1072, 0.1132
+    against 0.1016, 0.1058, 0.1094. Each seed's gap is also held within the
+    JAX package's own spread over the seeds plus 0.05, so the band on the
+    means rests on a spread measured in the same run."""
     x, y = quality_data
     port = [port_quality] + [
         (lambda est: (est.fit(x), est.partial_fit(y)))(est_for(make_cfg(1000, **dict(QUALITY, seed=seed))))
@@ -363,11 +369,15 @@ def test_side_by_side_with_jax_partial_fit(quality_data, port_quality, jax_grown
                 for _b, pf in runs]
         stab = [map_stability(b.embedding, pf.embedding[:1000], k=10, n_queries=500, device="cpu")
                 for b, pf in runs]
-        return np.mean(np10), np.mean(stab)
+        return np.array(np10), np.array(stab)
 
     (np_p, st_p), (np_j, st_j) = scores(port), scores(jax_grown[1])
-    assert abs(np_p - np_j) <= 0.05, (np_p, np_j)
-    assert abs(st_p - st_j) <= 0.05, (st_p, st_j)
+    print({"seeds": SIDE_SEEDS, "np10_port": np_p.tolist(), "np10_jax": np_j.tolist(),
+           "stability_port": st_p.tolist(), "stability_jax": st_j.tolist()})
+    assert abs(np_p.mean() - np_j.mean()) <= 0.05, (np_p, np_j)
+    assert abs(st_p.mean() - st_j.mean()) <= 0.05, (st_p, st_j)
+    assert np.abs(np_p - np_j).max() <= np.ptp(np_j) + 0.05, (np_p, np_j)
+    assert np.abs(st_p - st_j).max() <= np.ptp(st_j) + 0.05, (st_p, st_j)
 
 
 def test_lineage_grows_across_frameworks(quality_data, jax_grown):
