@@ -26,15 +26,25 @@ Phases, each fatal on failure:
    of half the mixture's components on the N = 1M map, with every
    kernel's launch count read around it, the grown layout checked
    (capacity, perm, rows) and every untouched cell's rows, kNN and θ held
-   bit-identical to the base fit's; then K1 and K4 at the grown K';
-7. a checkpoint round trip at the small fit's size: fit with
+   bit-identical to the base fit's; then K1, K2 and K4 at the grown K';
+7. the map service (``service_path``) on the N = 1M map: the inverse head
+   trained on the card; ``MapService.project`` under 1, 8 and 32 client
+   threads (launches = device batches × one batch's counts, repeats served
+   by the cache), the 8 clients' responses ≡ direct transforms bit for
+   bit, ``explore`` ≡ ``FrozenMap.neighbors(decode(·))`` with the card's
+   decode held to the CPU's, the busy share of a 32-client run, a hot swap
+   to the grown map under 8 clients with every response ≡ a direct
+   transform on the version it names, and K2 on each version's centroids;
+8. a checkpoint round trip at the small fit's size: fit with
    ``checkpoint_dir``, ``NomadProjection.from_checkpoint(dir).transform``
    bit-equal to the fitted estimator's, and the same frozen map served on
-   the CPU (plain versions) close to the card's; then ``partial_fit`` at
-   that size (``partial_small``): place-only ≡ transform, determinism,
-   the lineage v0 → v1 → v2, store ≡ array growth, the kNN patch in blocks
-   ≡ one batch, and the old rows' quality against a joint refit;
-8. the stream path: the main path's rows written as a bfloat16 sharded
+   the CPU (plain versions) close to the card's; an inverse head saved
+   beside it, picked up by ``registry.swap(dir)`` and served; then
+   ``partial_fit`` at that size (``partial_small``): place-only ≡
+   transform, determinism, the lineage v0 → v1 → v2 (served by
+   ``registry.load_lineage``), store ≡ array growth, the kNN patch in
+   blocks ≡ one batch, and the old rows' quality against a joint refit;
+9. the stream path: the main path's rows written as a bfloat16 sharded
    store under ``chiprun_out/`` and fitted from disk in 65,536-row chunks
    in a child process (its own peak RSS, stage times, launch counts), its
    map serving 4,096 queries from an ``.npy`` memmap and path bit-equal to
@@ -42,7 +52,7 @@ Phases, each fatal on failure:
    RSS, and here with the same chunks: bit-equal to the store's fit; then
    the randomized PCA (D 4096) on the card against the CPU. The store and
    its spill are deleted at the end;
-9. the kernel table (the contract line), then the card, then the result.
+10. the kernel table (the contract line), then the card, then the result.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the repository's ``src/`` is not beside it. Details of every check
@@ -762,17 +772,22 @@ def small_quality(device):
 
 
 # ---------------------------------------------------------------------------
-# Phases 5 and 7: serving and the checkpoint round trip
+# Phases 5 and 8: serving and the checkpoint round trip
 # ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=4)
+def _mixture_centers(fit_seed, n_components, dim):
+    from repro_torch.data.synthetic import mixture_centers
+
+    return mixture_centers(np.random.default_rng(fit_seed), n_components, dim)
 
 
 def mixture_queries(n, dim, n_components, seed, fit_seed=0, spread=0.15, labels=None):
     """New rows of the fit's mixture: the centres ``gaussian_mixture`` drew
-    from ``fit_seed``, fresh labels (or the given ``labels``) and noise
-    from ``seed``."""
-    from repro_torch.data.synthetic import mixture_centers
-
-    centers = mixture_centers(np.random.default_rng(fit_seed), n_components, dim)
+    from ``fit_seed`` (drawn once, then kept: 4096 × 768 take ~0.1 s),
+    fresh labels (or the given ``labels``) and noise from ``seed``."""
+    centers = _mixture_centers(fit_seed, n_components, dim)
     rng = np.random.default_rng(seed)
     labels = rng.integers(0, n_components, n) if labels is None else labels
     return (centers[labels] + rng.normal(0, spread / np.sqrt(dim), (n, dim))).astype(np.float32)
@@ -932,6 +947,7 @@ def checkpoint_roundtrip(device):
     if not (np.array_equal(a.cells, c.cells) and same_ids.mean() >= 0.99 and err <= 1e-3 * scale):
         raise AssertionError(f"card vs CPU: cells equal {np.array_equal(a.cells, c.cells)}, "
                              f"ids equal on {same_ids.mean():.4f}, max |Δθ| {err} (scale {scale})")
+    head = small_head_swap(device, est, fit, x, q, a, ckdir)
     return {
         "checkpoint": "small fit (5000×32, K 8): the full-width 3.8 GB x_rows cache is not written",
         "checkpoint_epochs": fit.checkpoint_epochs,
@@ -940,7 +956,43 @@ def checkpoint_roundtrip(device):
         "cpu_ids_equal_frac": float(same_ids.mean()),
         "cpu_max_abs_diff": err,
         "embedding_scale": scale,
+        "inverse_swap": head,
     }
+
+
+def small_head_swap(device, est, fit, x, q, served, ckdir):
+    """The inverse head trained on the small fit on the card and saved
+    beside its checkpoint; ``registry.swap(ckdir)`` must pick it up, serve
+    ``project`` ≡ the fitted estimator's transform (``served``) and
+    ``explore`` ≡ ``neighbors(decode(·))``, with a round-trip R² of at least
+    the JAX package's floor."""
+    from repro_torch.pipeline import inverse_from_frozen, roundtrip_score, save_inverse
+    from repro_torch.service import MapService
+
+    t0 = time.time()
+    head = inverse_from_frozen(est.map_server().frozen)
+    train_s = time.time() - t0
+    save_inverse(ckdir, head)
+    svc = MapService(device=device)
+    try:
+        svc.registry.add(est.map_server().frozen, version="fitted")
+        h = svc.registry.swap(ckdir, version="loaded")
+        if h.inverse is None or [d["version"] for d in svc.registry.versions()] != ["loaded"]:
+            raise AssertionError("swap(ckdir) did not pick up inverse.npz, or kept the old version")
+        if not _same_result(svc.project(q, seed=0).result, served):
+            raise AssertionError("the swapped-in checkpoint serves other bits than the fitted estimator")
+        coords = fit.embedding[:256]
+        ex = svc.explore(coords)
+        ids, dists = h.frozen.neighbors(h.inverse.decode(coords, device=device))
+        if not (np.array_equal(ex.neighbor_ids, ids) and np.array_equal(ex.neighbor_dists, dists)):
+            raise AssertionError("explore differs from neighbors(decode(coords)) on the swapped-in map")
+        r2 = roundtrip_score(h.inverse, fit.embedding, x, device=device)
+        if not r2 >= ROUNDTRIP_R2_FLOOR:
+            raise AssertionError(f"round-trip R² {r2} under the floor {ROUNDTRIP_R2_FLOOR}")
+    finally:
+        svc.close()
+    return {"train_s": train_s, "train_loss": head.train_loss, "roundtrip_r2": r2, "swap_picked_up_head": True,
+            "project_equal_fitted": True, "explore_equal_neighbors_of_decode": True}
 
 
 # ---------------------------------------------------------------------------
@@ -969,12 +1021,13 @@ def _cell_blocks_equal(a, b, C: int, cells: np.ndarray, slab: int = 256) -> np.n
 
 
 def check_grown_k(device, K: int) -> dict:
-    """K1 (a refinement step: B 8192) and K4 (a serving batch: B 1024) at
-    a grown map's K' against their plain versions, atol scaled by the
-    largest output as at K 4096."""
+    """K1 (a refinement step: B 8192), K2 and K4 (a serving batch: B 1024)
+    at a grown map's K' against their plain versions: K2 by its oracle
+    rule, the others with atol scaled by the largest output as at K 4096."""
     import torch
 
     from repro_torch.kernels.cauchy_mean import ops as k4
+    from repro_torch.kernels.kmeans_assign import ops as k2
     from repro_torch.kernels.nomad_step import ops as k1
 
     B, k, S, _, d = NOMAD_MAIN
@@ -994,9 +1047,36 @@ def check_grown_k(device, K: int) -> dict:
     outs = {"s": (k4.cauchy_mean_fwd_cuda(th, mu, w, own), k4.cauchy_mean_fwd_plain(th, mu, w, own)),
             "g_theta": (k4.cauchy_mean_bwd_cuda(th, mu, w, own, gb), k4.cauchy_mean_bwd_plain(th, mu, w, own, gb))}
     e4 = _check_pair(f"cauchy_mean at K' {K}", outs, k4.TOL, True)
+    n, _, D = KMEANS_SERVE
+    x, c = torch.randn(n, D, generator=g, device=device), torch.randn(K, D, generator=g, device=device)
+    k2_got, k2_want = k2.assign_nearest_cuda(x, c), k2.assign_nearest_plain(x, c)
     torch.cuda.synchronize()
+    k2.oracle_check(x, c, k2_got, k2_want)  # raises on disagreement
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     return {"K": K, "nomad_step": {"shape": (B, k, S, K, d), "plan": k1.plan(K), "max_abs_err": e1},
+            "kmeans_assign": {"shape": (n, K, D), "plan": k2.plan(n, K, sms),
+                              "max_abs_err": _max_err(k2_got[1], k2_want[1])},
             "cauchy_mean": {"shape": (1024, K, d), "plan": k4.plan(K), "max_abs_err": e4}, "ok": True}
+
+
+def check_served_k2(device, frozen, dim: int, seed: int) -> dict:
+    """K2 as a full serving batch of the map runs it: ``serve_microbatch``
+    mixture queries against the map's own centroids, on the card and in
+    the plain version, by the oracle rule."""
+    import torch
+
+    from repro_torch.kernels.kmeans_assign import ops
+
+    n = KMEANS_SERVE[0]
+    q = torch.from_numpy(mixture_queries(n, dim, MAIN_COMPONENTS, seed=seed)).to(device)
+    c = frozen.centroids
+    got, want = ops.assign_nearest_cuda(q, c), ops.assign_nearest_plain(q, c)
+    torch.cuda.synchronize()
+    ops.oracle_check(q, c, got, want)  # raises on disagreement
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return {"shape": (n, c.shape[0], c.shape[1]), "plan": ops.plan(n, c.shape[0], sms),
+            "max_abs_err": _max_err(got[1], want[1]),
+            "argmin_equal_frac": float((got[0] == want[0]).float().mean()), "ok": True}
 
 
 def check_split_cell(device, old, idx) -> dict:
@@ -1150,6 +1230,7 @@ def partial_small(device):
     from repro_torch.index.build import chunked_cluster_knn
     from repro_torch.metrics import neighborhood_preservation
     from repro_torch.serve import FrozenMap, MapServer
+    from repro_torch.service import MapService
 
     work = os.path.join(OUT_DIR, "partial_small")
     shutil.rmtree(work, ignore_errors=True)
@@ -1177,6 +1258,7 @@ def partial_small(device):
         pf_a = est_a.partial_fit(y)
         est_b = NomadProjection(cfg.replace(checkpoint_dir=root), device=device)
         est_b.fit(x)
+        want_v0 = est_b.map_server().transform(q, seed=0)
         pf_b = est_b.partial_fit(y)
         if not (np.array_equal(pf_a.embedding, pf_b.embedding) and np.array_equal(pf_a.index.perm, pf_b.index.perm)
                 and pf_a.losses == pf_b.losses):
@@ -1195,6 +1277,17 @@ def partial_small(device):
         if not np.array_equal(served.embedding, cold.transform(q, seed=0)):
             raise AssertionError("the v2 directory's transform differs from the estimator's")
         out["lineage"] = [v.to_json() for v in versions]
+        svc = MapService(device=device)
+        try:  # the service serves the lineage's first and newest versions
+            newest = svc.registry.load_lineage(root)
+            first = svc.registry.load_lineage(root, map_version="v0", activate=False)
+            if not (newest.version == "v2" and first.version == "v0"
+                    and _same_result(svc.project(q, seed=0).result, cold.map_server().transform(q, seed=0))
+                    and _same_result(svc.project(q, seed=0, map_version="v0").result, want_v0)):
+                raise AssertionError("load_lineage: v0 or v2 serves other bits than the estimator at that version")
+        finally:
+            svc.close()
+        out["load_lineage_v0_v2_equal_estimator"] = True
 
         chunked = cfg.replace(chunk_rows=1024)
         store = os.path.join(work, "store")
@@ -1233,7 +1326,368 @@ def partial_small(device):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the stream path (fit and serve from an on-disk store)
+# Phase 7: the map service (batcher, cache, registry, hot swap, explore)
+# ---------------------------------------------------------------------------
+
+SERVICE_CLIENTS = (1, 8, 32)
+SERVICE_REQUESTS = 200  # requests of one load run, at least (a client sends 16 at least)
+SERVICE_ROWS = 64  # rows a request, ± 2 (benchmarks/service_load.py's jitter)
+SERVICE_CACHE_EVERY = 10  # request i (i > 0, i % 10 == 0) repeats the client's first: a cache hit
+SWAP_CLIENTS = 8
+SWAP_V1_CHECKED = 64  # v1 responses of the swap held to a direct transform
+EXPLORE_ROWS = 1024
+DECODE_TOL = 1e-6  # the card's decode against the CPU's: fp32 reads ~2e-8, a TF32 decode far more
+ROUNDTRIP_ROWS = 20_000
+ROUNDTRIP_R2_FLOOR = 0.15  # the JAX package's floor (tests/test_pipeline.py), at the small fit
+
+
+def serve_launches_per_batch(cfg) -> dict:
+    """Launches of one serving batch of ``serve_microbatch`` rows: K2 once,
+    K3 once a ``serve_knn_block`` of queries, K4f/K4b/K5f/K5b once a step."""
+    per = {n: 0 for n in FIT_KERNELS + SERVE_KERNELS[2:]}
+    per.update(kmeans_assign=1, pairwise=-(-cfg.serve_microbatch // cfg.serve_knn_block))
+    for n in SERVE_KERNELS[2:]:
+        per[n] = cfg.transform_steps
+    return per
+
+
+def requests_per_client(n_clients: int) -> int:
+    """16, or more so that the run sends ``SERVICE_REQUESTS`` in all: a
+    p99 of fewer requests would be little more than their maximum."""
+    return max(16, -(-SERVICE_REQUESTS // n_clients))
+
+
+def client_schedule(n_clients, dim, seed0):
+    """Each client's requests, drawn before the clients start:
+    ``requests_per_client`` of 64 ± 2 rows of the fit's mixture, a seed
+    each; every 10th request repeats request 0."""
+    out = []
+    for c in range(n_clients):
+        reqs = []
+        for i in range(requests_per_client(n_clients)):
+            if i and i % SERVICE_CACHE_EVERY == 0:
+                reqs.append(reqs[0])
+            else:
+                s = seed0 + 1000 * c + i
+                reqs.append((mixture_queries(SERVICE_ROWS + i % 5 - 2, dim, MAIN_COMPONENTS, seed=s), s))
+        out.append(reqs)
+    return out
+
+
+def drive_clients(svc, schedule, stop=None, after_stop=2):
+    """One thread a client, each sending its requests in turn through
+    ``MapService.project``. With ``stop`` (an Event), a client cycles
+    through its rows with fresh seeds until ``stop`` is set, then sends
+    ``after_stop`` more. Returns each client's [(q, seed, outcome, wall,
+    sent after stop)] and the run's wall; any error is raised."""
+    import threading
+
+    got = [[] for _ in schedule]
+    errs = []
+    start = threading.Barrier(len(schedule) + 1)
+
+    def client(c):
+        try:
+            start.wait()
+            reqs, i, tail = schedule[c], 0, 0
+            while (i < len(reqs)) if stop is None else (tail < after_stop and i < 10_000):
+                q, seed = reqs[i % len(reqs)]
+                if stop is not None:
+                    seed = 900_000 + 10_000 * c + i
+                late = stop is not None and stop.is_set()
+                t0 = time.perf_counter()
+                out = svc.project(q, seed=seed)
+                got[c].append((q, seed, out, time.perf_counter() - t0, late))
+                i += 1
+                tail += late
+        except BaseException as e:  # noqa: BLE001
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(len(schedule))]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client did not finish within 600 s")
+    return got, wall
+
+
+def device_busy(device, fn):
+    """``fn()`` under torch.profiler: (its wall s, the device's kernel time s)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return wall, busy / 1e6
+
+
+def _same_result(got, want) -> bool:
+    return all(np.array_equal(getattr(got, f), getattr(want, f))
+               for f in ("embedding", "cells", "neighbor_ids", "neighbor_dists"))
+
+
+def service_load(svc, handle, cfg, n_clients, seed0, per_batch):
+    """One load run of ``n_clients`` clients on the active map: request
+    latency, rows/s, batches, fill, hits and each kernel's launches, which
+    must equal the run's device batches × one batch's count. The repeats
+    must be cache hits that never reach the batcher."""
+    from repro_torch.kernels import registry
+
+    schedule = client_schedule(n_clients, cfg.dim, seed0)
+    n_req = requests_per_client(n_clients)
+    st0, hits0 = handle.batcher.stats.as_dict(), svc.cache.hits
+    registry.reset_launch_counts()
+    got, wall = drive_clients(svc, schedule)
+    launches = registry.launch_counts()
+    st1 = handle.batcher.stats.as_dict()
+    n_batches = st1["n_batches"] - st0["n_batches"]
+    n_rows = st1["n_rows"] - st0["n_rows"]
+    hits = svc.cache.hits - hits0
+    miss_rows = sum(o.result.n_queries for rs in got for _, _, o, _, _ in rs if not o.cache_hit)
+    repeats = [(rs[0][2], rs[i][2]) for rs in got for i in range(SERVICE_CACHE_EVERY, n_req, SERVICE_CACHE_EVERY)]
+    if not all(b.cache_hit and b.result is a.result for a, b in repeats) or hits != len(repeats):
+        raise AssertionError(f"{n_clients} clients: {hits} cache hits, want the {len(repeats)} repeats")
+    if n_rows != miss_rows or st1["n_requests"] - st0["n_requests"] != n_clients * n_req - hits:
+        raise AssertionError(f"{n_clients} clients: the batcher saw {n_rows} rows, the misses hold {miss_rows}")
+    want = {n: n_batches * c for n, c in per_batch.items()}
+    if launches != want:
+        raise AssertionError(f"{n_clients} clients: launches {launches}, want {n_batches} batches × one "
+                             f"batch's {per_batch}")
+    for rs in got:
+        for q, _, o, _, _ in rs:
+            if o.result.embedding.shape != (q.shape[0], cfg.out_dim) or not np.isfinite(o.result.embedding).all():
+                raise AssertionError(f"{n_clients} clients: a response is not finite of shape {q.shape[0]}×2")
+    walls = [w for rs in got for _, _, _, w, _ in rs]
+    rows = sum(q.shape[0] for rs in got for q, _, _, _, _ in rs)
+    return got, {
+        "clients": n_clients,
+        "requests": len(walls),
+        "rows": rows,
+        "wall_s": wall,
+        "request_p50_s": float(np.percentile(walls, 50)),
+        "request_p99_s": float(np.percentile(walls, 99)),
+        "request_max_s": max(walls),
+        "rows_per_s": rows / wall,  # cache hits' rows included
+        "device_rows_per_s": n_rows / wall,  # the rows that reached the device
+        "n_batches": n_batches,
+        "batch_fill": n_rows / (n_batches * handle.server.batch_rows),
+        "cache_hits": hits,
+        "launches": launches,
+    }
+
+
+def service_path(device, cfg, fit, est, x):
+    """The service (``repro_torch.service``) on the main path's N = 1M map at
+    PubMed's serve widths (microbatch 1024, 24 steps, k 15, S 16, a 5 ms
+    batching delay, 1024 cache entries): the inverse head trained on the
+    map on the card; load runs of 1, 8 and 32 clients (launches = device
+    batches × one batch's counts, repeats served by the cache); the 8
+    clients' responses ≡ a direct ``MapServer.transform`` each; explore of
+    1,024 training rows ≡ ``FrozenMap.neighbors(decode(·))`` with the card's
+    decode within ``DECODE_TOL`` of the CPU's and a TF32 decode beyond it;
+    the 32-client run again under torch.profiler for the busy share; then a
+    hot swap to the grown map (``est``'s, from partial_path) under 8
+    clients: nothing dropped, every response ≡ a direct transform on the
+    version it names. K2 on each version's own centroids at a full serving
+    batch, against its plain version."""
+    import threading
+
+    import torch
+
+    from repro_torch.kernels import registry
+    from repro_torch.pipeline import inverse_from_frozen, roundtrip_score
+    from repro_torch.serve import FrozenMap, MapServer
+    from repro_torch.service import MapService
+
+    out = {"config": {"serve_microbatch": cfg.serve_microbatch, "transform_steps": cfg.transform_steps,
+                      "n_neighbors": cfg.n_neighbors, "n_exact_negatives": cfg.n_exact_negatives,
+                      "service_max_delay_s": cfg.service_max_delay_s,
+                      "service_cache_entries": cfg.service_cache_entries}}
+    per_batch = serve_launches_per_batch(cfg)
+    out["launches_per_batch"] = per_batch
+    t0 = time.time()
+    fz = FrozenMap.from_fit(fit, cfg, device=device)
+    torch.cuda.synchronize(device)
+    out["freeze_s"] = time.time() - t0
+
+    # the inverse head on the card, from the map's own rows
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"TF32 matmuls are on: the head's decode would leave the CPU's by more than "
+                             f"{DECODE_TOL}")
+    t0 = time.time()
+    head = inverse_from_frozen(fz, hidden=(128, 128), steps=1500)
+    torch.cuda.synchronize(device)
+    train_s = time.time() - t0
+    pick = np.sort(np.random.default_rng(11).choice(x.shape[0], ROUNDTRIP_ROWS, replace=False))
+    r2 = roundtrip_score(head, fit.embedding[pick], x[pick], device=device)
+    out["inverse"] = {"hidden": list(head.hidden), "steps": head.train_steps, "train_s": train_s,
+                      "train_loss": head.train_loss, "roundtrip_r2_20k": r2}
+    print(json.dumps({"service_inverse": out["inverse"]}), flush=True)
+
+    svc = MapService(cache_entries=cfg.service_cache_entries, device=device)
+    try:
+        t0 = time.time()
+        v1 = svc.registry.add(fz, version="v1", inverse=head)
+        out["add_v1_s"] = time.time() - t0
+        if v1.batcher.max_delay_s != cfg.service_max_delay_s:
+            raise AssertionError(f"batcher delay {v1.batcher.max_delay_s} is not the config's")
+        out["k2_served"] = {"v1": check_served_k2(device, fz, cfg.dim, seed=41)}
+
+        # 1. load runs; 2. the 8 clients' responses ≡ direct transforms
+        direct = MapServer(fz)
+        runs, service_launches = [], {n: 0 for n in per_batch}
+        for n_clients in SERVICE_CLIENTS:
+            got, run = service_load(svc, v1, cfg, n_clients, 10_000 * n_clients, per_batch)
+            for n, c in run["launches"].items():
+                service_launches[n] += c
+            if n_clients == SWAP_CLIENTS:
+                t0 = time.time()
+                misses = [(q, s, o) for rs in got for q, s, o, _, _ in rs if not o.cache_hit]
+                bad = sum(not _same_result(o.result, direct.transform(q, seed=s)) for q, s, o in misses)
+                if bad:
+                    raise AssertionError(f"{bad} of {len(misses)} coalesced responses differ from a direct transform")
+                run["coalesced_equal_direct"] = len(misses)
+                run["direct_check_s"] = time.time() - t0
+            runs.append(run)
+            print(json.dumps({"service_load": run}), flush=True)
+        out["load"] = runs
+        out["launches"] = service_launches
+
+        # 4. explore at full width: ≡ neighbors(decode(·)), decode card ≈ CPU
+        coords = fit.embedding[pick[:EXPLORE_ROWS]]
+        registry.reset_launch_counts()
+        ex = svc.explore(coords, map_version="v1")
+        ex_launches = registry.launch_counts()
+        dec = head.decode(coords, device=device)
+        ids, dists = fz.neighbors(dec)
+        if not (np.array_equal(ex.embedding, dec) and np.array_equal(ex.neighbor_ids, ids)
+                and np.array_equal(ex.neighbor_dists, dists)):
+            raise AssertionError("explore differs from FrozenMap.neighbors(decode(coords))")
+        want = {n: 0 for n in per_batch}
+        want.update(kmeans_assign=1, pairwise=-(-EXPLORE_ROWS // cfg.serve_knn_block))
+        if ex_launches != want:
+            raise AssertionError(f"explore's launches {ex_launches}, want {want}")
+        dec_cpu = head.decode(coords, device="cpu")
+        dec_err = float(np.abs(dec - dec_cpu).max())
+        # the same decode with TF32 on (no client is running): the bound
+        # must lie between the sound reading and this one
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32_err = float(np.abs(head.decode(coords, device=device) - dec_cpu).max())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        if not dec_err <= DECODE_TOL < tf32_err:
+            raise AssertionError(f"the card's decode is {dec_err} from the CPU's, a TF32 decode {tf32_err} "
+                                 f"(want <= {DECODE_TOL} < TF32's)")
+        ex_walls = [svc.explore(coords, map_version="v1").wall_s for _ in range(10)]
+        out["explore"] = {"rows": EXPLORE_ROWS, "equal_neighbors_of_decode": True, "launches": ex_launches,
+                          "decode_card_vs_cpu_max_abs": dec_err, "decode_tf32_vs_cpu_max_abs": tf32_err,
+                          "decode_tol": DECODE_TOL, "p50_s": float(np.percentile(ex_walls, 50)),
+                          "walls_s": ex_walls}
+        print(json.dumps({"service_explore": out["explore"]}), flush=True)
+
+        # the busy share of a 32-client run (a second one, profiled)
+        sched = client_schedule(SERVICE_CLIENTS[-1], cfg.dim, 500_000)
+        st0 = v1.batcher.stats.n_batches
+        wall, busy = device_busy(device, lambda: drive_clients(svc, sched))
+        out["profiled_32"] = {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
+                              "n_batches": v1.batcher.stats.n_batches - st0}
+        print(json.dumps({"service_profiled": out["profiled_32"]}), flush=True)
+
+        # 3. hot swap to the grown map under 8 clients
+        pool = client_schedule(SWAP_CLIENTS, cfg.dim, 700_000)
+        stop = threading.Event()
+        result = {}
+
+        def swap():
+            """Half a second into the load: freeze the grown map, add it as
+            v2 (warm, then active), retire v1; the clients then send two
+            more requests each."""
+            try:
+                time.sleep(0.5)
+                t0 = time.time()
+                grown = FrozenMap.from_fit(est._fit_result, cfg, device=device)
+                result["v2"] = svc.registry.add(grown, version="v2")
+                svc.registry.retire("v1")
+                result["swap_s"] = time.time() - t0
+            except BaseException as e:  # noqa: BLE001
+                result["error"] = e
+            finally:
+                stop.set()
+
+        st0 = v1.batcher.stats.n_batches
+        registry.reset_launch_counts()
+        swapper = threading.Thread(target=swap)
+        swapper.start()
+        got, wall = drive_clients(svc, pool, stop=stop)
+        swapper.join()
+        launches = registry.launch_counts()
+        if "error" in result:
+            raise result["error"]
+        v2 = result["v2"]
+        if svc.registry.active_version != "v2" or [d["version"] for d in svc.registry.versions()] != ["v2"]:
+            raise AssertionError(f"after the swap: {svc.registry.versions()}")
+        v1_batches, v2_batches = v1.batcher.stats.n_batches - st0, v2.batcher.stats.n_batches
+        # the warm-up of v2 is one more batch through the same path
+        want = {n: (v1_batches + v2_batches + 1) * c for n, c in per_batch.items()}
+        if launches != want:
+            raise AssertionError(f"swap: launches {launches}, want ({v1_batches} + {v2_batches} + 1 warm) × "
+                                 f"{per_batch}")
+        out["k2_served"]["v2"] = check_served_k2(device, v2.frozen, cfg.dim, seed=42)
+        print(json.dumps({"service_k2_served": out["k2_served"]}), flush=True)
+        flat = [r for rs in got for r in rs]
+        late_v1 = [r for r in flat if r[4] and r[2].map_version != "v2"]
+        if late_v1 or any(len(rs) < 2 for rs in got):
+            raise AssertionError(f"{len(late_v1)} requests sent after the swap served by v1")
+        by_version = {"v1": [r for r in flat if r[2].map_version == "v1"],
+                      "v2": [r for r in flat if r[2].map_version == "v2"]}
+        if len(by_version["v1"]) + len(by_version["v2"]) != len(flat) or not by_version["v2"]:
+            raise AssertionError("swap: responses of neither version, or none of v2")
+        t0 = time.time()
+        servers = {"v1": direct, "v2": MapServer(v2.frozen)}
+        checked = {"v1": by_version["v1"][:SWAP_V1_CHECKED], "v2": by_version["v2"]}
+        for name, rs in checked.items():
+            bad = sum(not _same_result(o.result, servers[name].transform(q, seed=s)) for q, s, o, _, _ in rs)
+            if bad:
+                raise AssertionError(f"swap: {bad} of {len(rs)} {name} responses differ from a direct transform")
+        walls = [r[3] for r in flat]
+        out["swap"] = {
+            "clients": SWAP_CLIENTS, "requests": len(flat), "wall_s": wall, "swap_s": result["swap_s"],
+            "v1_responses": len(by_version["v1"]), "v2_responses": len(by_version["v2"]),
+            "checked": {k: len(v) for k, v in checked.items()}, "direct_check_s": time.time() - t0,
+            # a swap window holds ~100 requests: their maximum, not a p99
+            "request_p50_s": float(np.percentile(walls, 50)), "request_max_s": max(walls),
+            "v1_batches": v1_batches, "v2_batches": v2_batches, "launches": launches,
+            "K_v2": v2.frozen.n_clusters, "fingerprints": [v1.fingerprint, v2.fingerprint],
+            "v1_errors": v1.batcher.stats.n_errors, "v2_errors": v2.batcher.stats.n_errors,
+            "swap_retries": svc.metrics.count("project.swap_retries"),
+        }
+        if out["swap"]["v1_errors"] or out["swap"]["v2_errors"]:
+            raise AssertionError(f"batcher errors during the swap: {out['swap']}")
+        print(json.dumps({"service_swap": out["swap"]}), flush=True)
+        out["metrics"] = {k: v for k, v in svc.metrics_snapshot().items() if k != "maps"}
+    finally:
+        svc.close()
+    del fz
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the stream path (fit and serve from an on-disk store)
 # ---------------------------------------------------------------------------
 
 STREAM_CHUNK = 65_536  # cfg.chunk_rows: 16 chunks at N = 1M, the last 16,960 rows
@@ -1600,6 +2054,10 @@ def main() -> int:
     partial = partial_path(device, main_config(), est, fit, x)
     partial["phase_s"] = time.time() - t0
     print(json.dumps({"partial_path": partial}), flush=True)
+    t0 = time.time()
+    service = service_path(device, main_config(), fit, est, x)
+    service["phase_s"] = time.time() - t0
+    print(json.dumps({"service_path": service}), flush=True)
     del est, fit
     stream = stream_path(device, x)
     del x
@@ -1621,7 +2079,8 @@ def main() -> int:
             # serving for K4/K5; both paths' counts beside it
             "launches": fit_n if name in FIT_KERNELS else serve_n,
             "launches_by_path": {"fit": fit_n, "serve": serve_n, "partial": partial["launches"][name],
-                                 "stream": stream["stream"]["launches"][name]},
+                                 "stream": stream["stream"]["launches"][name],
+                                 "service": service["launches"][name]},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
@@ -1643,7 +2102,7 @@ def main() -> int:
              for label, where, port in TPU_KERNELS]
     record = {"card": card, "build_s": build_s, "checks": checks, "timing": timing,
               "main_path": main_res, "small_quality": quality, "serve_path": serve, "partial_path": partial,
-              "stream_path": stream, "checkpoint_roundtrip": ckpt, "partial_small": small_partial,
+              "service_path": service, "stream_path": stream, "checkpoint_roundtrip": ckpt, "partial_small": small_partial,
               "tpu_kernels": table, "kernels": kernels}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)

@@ -12,7 +12,9 @@ edited kernel is rebuilt and an unchanged one is reused. ``ptxas``'s
 register and shared-memory report is kept beside it as ``<lib>.log``.
 Nothing is built at import: the first launch builds what it needs, and
 :func:`build` with no argument builds every kernel at once, one nvcc
-process each.
+process each. :func:`build` and :func:`load` hold one module lock, so
+threads that reach a kernel's first launch together build and load it
+once.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -52,6 +55,7 @@ SIGNATURES = {
 }
 
 _LOADED: dict = {}
+_LOCK = threading.RLock()  # build() and load(): one thread builds and loads a library
 
 
 def nvcc() -> str:
@@ -76,7 +80,7 @@ def _start(name: str):
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -101,8 +105,9 @@ def build(names=SOURCES) -> dict:
     """Compile the named kernels (all nvcc processes run at once, and all
     are waited for); return {name: library path}. Already-built libraries
     are reused."""
-    started = {n: _start(n) for n in names}
-    errors = [e for e in (_finish(n, s) for n, s in started.items()) if e]
+    with _LOCK:
+        started = {n: _start(n) for n in names}
+        errors = [e for e in (_finish(n, s) for n, s in started.items()) if e]
     if errors:
         raise RuntimeError("\n".join(errors))
     return {n: library_path(n) for n in names}
@@ -115,15 +120,16 @@ def ptxas_report(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel source ``name``, built on first use."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        path = build((name,))[name]
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LOADED[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path = build((name,))[name]
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LOADED[name] = lib
+        return lib
 
 
 def check(err: int, what: str) -> None:

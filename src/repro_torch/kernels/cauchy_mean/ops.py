@@ -105,7 +105,7 @@ def cauchy_mean_fwd_cuda(th, mu, w, own):
             B, K, d, *plan(K), torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "cauchy_mean_fwd")
-    FWD.launches += 1
+    registry.count_launch(FWD)
     return out
 
 
@@ -119,7 +119,7 @@ def cauchy_mean_bwd_cuda(th, mu, w, own, gbar):
             gth.data_ptr(), B, K, d, *plan(K), torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "cauchy_mean_bwd")
-    BWD.launches += 1
+    registry.count_launch(BWD)
     return gth
 
 

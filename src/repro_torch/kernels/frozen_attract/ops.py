@@ -93,7 +93,7 @@ def frozen_attract_fwd_cuda(th, nb, w, m):
             B, k, d, plan(k), torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "frozen_attract_fwd")
-    FWD.launches += 1
+    registry.count_launch(FWD)
     return loss
 
 
@@ -109,7 +109,7 @@ def frozen_attract_bwd_cuda(th, nb, w, m, gbar):
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "frozen_attract_bwd")
-    BWD.launches += 1
+    registry.count_launch(BWD)
     return gth, gm
 
 

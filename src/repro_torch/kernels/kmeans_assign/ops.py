@@ -89,7 +89,7 @@ def assign_nearest_cuda(x: torch.Tensor, cents: torch.Tensor):
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "kmeans_assign")
-    KERNEL.launches += 1
+    registry.count_launch(KERNEL)
     return arg, mind
 
 

@@ -130,7 +130,7 @@ def nomad_step_fwd_cuda(th, pos, pw, neg, nw, mu, cw, own, want_far=False):
             B, k, S, K, d, *plan(K), torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "nomad_step_fwd")
-    FWD.launches += 1
+    registry.count_launch(FWD)
     return loss, m, far
 
 
@@ -149,7 +149,7 @@ def nomad_step_bwd_cuda(th, pos, pw, neg, nw, m, far, gbar):
             B, k, S, d, torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "nomad_step_bwd")
-    BWD.launches += 1
+    registry.count_launch(BWD)
     return g_i, g_pos, g_neg
 
 

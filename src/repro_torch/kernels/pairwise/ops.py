@@ -83,7 +83,7 @@ def pairwise_dist2_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             0 if way == "tile" else 1, tile, torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, "pairwise")
-    KERNEL.launches += 1
+    registry.count_launch(KERNEL)
     return out if x.dim() == 3 else out[0]
 
 

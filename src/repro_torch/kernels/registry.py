@@ -11,6 +11,9 @@ of the tensors it is given, and by nothing else:
 Each CUDA wrapper adds one to its kernel's ``launches`` right after the
 kernel launched, and nowhere else, so a run can show which kernels its
 path went through (:func:`launch_counts`, :func:`reset_launch_counts`).
+The count goes through :func:`count_launch`, under a lock: the service
+launches from several worker threads at once, and a bare ``+= 1`` there
+could lose counts.
 Kernel names follow the JAX package's registry; the nomad_step,
 cauchy_mean and frozen_attract pairs are two entries each, one per
 direction.
@@ -19,6 +22,7 @@ direction.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable
 
 import torch
@@ -35,6 +39,7 @@ class Kernel:
 
 
 _KERNELS: dict[str, Kernel] = {}
+_COUNT_LOCK = threading.Lock()
 
 
 def register(kernel: Kernel) -> Kernel:
@@ -82,13 +87,22 @@ def dispatch(name: str, *tensors, **options):
     raise ValueError(f"{name}: no kernel for device {device}")
 
 
+def count_launch(kernel: Kernel) -> None:
+    """Add one to ``kernel``'s launches; a CUDA wrapper calls this right
+    after its kernel launched, and nowhere else."""
+    with _COUNT_LOCK:
+        kernel.launches += 1
+
+
 def launch_counts() -> dict[str, int]:
-    return {n: get(n).launches for n in names()}
+    with _COUNT_LOCK:
+        return {n: get(n).launches for n in names()}
 
 
 def reset_launch_counts() -> None:
-    for n in names():
-        get(n).launches = 0
+    with _COUNT_LOCK:
+        for n in names():
+            get(n).launches = 0
 
 
 def require_cuda(kernel: str, **tensors: torch.Tensor) -> torch.device:

@@ -48,6 +48,8 @@ class TransformResult:
     neighbor_ids: Optional[np.ndarray]  # (Nq, k) original-order ids (-1 = none)
     neighbor_dists: Optional[np.ndarray]  # (Nq, k) ascending distances (inf = none)
     n_queries: int = 0
+    strategy: str = "local"
+    n_shards: int = 1
     microbatch: int = 0
     steps: int = 0
     wall_time_s: float = 0.0
@@ -105,7 +107,8 @@ class MapServer:
                  lr: Optional[float] = None):
         cfg = frozen.cfg
         self.frozen = frozen
-        resolve_serve_strategy(strategy if strategy is not None else cfg.serve_strategy)  # raises if unported
+        self.strategy = resolve_serve_strategy(strategy if strategy is not None else cfg.serve_strategy)
+        self.n_shards = 1  # one device: "sharded" raises above until the multi-GPU slice
         self.microbatch = microbatch or cfg.serve_microbatch
         self.steps = cfg.transform_steps if steps is None else steps
         self._lr = lr
@@ -189,6 +192,8 @@ class MapServer:
             neighbor_ids=np.concatenate(nids).astype(np.int64) if return_neighbors else None,
             neighbor_dists=np.concatenate(ndist).astype(np.float32) if return_neighbors else None,
             n_queries=nq,
+            strategy=self.strategy,
+            n_shards=self.n_shards,
             microbatch=self.microbatch,
             steps=self.steps,
             wall_time_s=time.time() - t0,
