@@ -35,7 +35,43 @@ Phases, each fatal on failure:
    decode held to the CPU's, the busy share of a 32-client run, a hot swap
    to the grown map under 8 clients with every response ≡ a direct
    transform on the version it names, and K2 on each version's centroids;
-8. a checkpoint round trip at the small fit's size: fit with
+8. the embed pipeline (``pipeline_path``): Phi-4-mini at its published
+   widths (32 layers, d_model 3072, 24 heads of 128 on 8 kv heads, d_ff
+   8192, vocabulary 200,064, bf16, attn_chunk 1024; 3.84 B parameters
+   initialised on the card from a seeded generator) embeds
+   ``class_token_corpus(16,384, 128, 200,064, 8 classes)`` with
+   ``embed_to_store`` (doc_batch 128, mean pooling): wall, tokens/s,
+   achieved TFLOP/s against the bf16 peak, a batch's busy share, peak
+   device memory. On the first 2,048 documents the store's rows ≡
+   ``embed_corpus``'s matrix ≡ a second embed, and ``fit`` of the store ≡
+   ``fit`` of the matrix, bit for bit. Before that, Phi-4-mini, Mamba-2 and
+   Mixtral at their published widths with 2 layers: the card's fp32
+   ``hidden_states`` of 4 documents against the port's CPU forward (each
+   token's ‖Δ‖/‖h‖ ≤ 1e-4; MoE routes compared, a difference must be a
+   near-tie) and the bf16 forward against the fp32 one (median ≤ 0.03,
+   max ≤ 0.1); the maxima take each document's tokens before its first
+   differing route or capacity keep, and fail if there are none. The corpus
+   is mapped (``pipeline_phi4_mini``'s map config at K 64, batch 2,048,
+   chunk_rows 4,096), the inverse head trained, saved and scored as
+   ``run_pipeline`` strings them, and the map's 10-NN class agreement must
+   exceed 0.375 (three times chance; the pooled vectors' printed beside
+   it). ``MapRegistry.load(map_dir)`` then serves 1,024 held-out documents
+   (``class_token_corpus`` seed 1, embedded by the same model) through
+   ``MapService.project`` with one batch's launches (K2 1, K3 4,
+   K4f/K4b/K5f/K5b 24 each), ≡ a direct ``MapServer.transform``, and
+   ``explore`` of 1,024 map coordinates ≡ ``neighbors(decode(·))``. Every
+   kernel is held to its plain version on the phase's own data at its
+   shapes: K1 at the fit's step (B 2,048, k 15, S 16, K 64, d 2, drawn from
+   the fitted θ), K2 and K3 at D = 3072 (the build, the in-cell kNN, a
+   serving batch and its query route), K4 and K5 at the held-out batch (B
+   1,024 placements). Last, ``run_pipeline`` for each registered workload
+   at its own CPU-sized widths, served from its ``map/``, with the same
+   five kernels held to their plain versions on its data. ``reduced``: no
+   head or vocabulary padding (a layout, not a cut), random weights, the
+   synthetic corpus, and 2 layers and 4 documents in the forward checks.
+   Launch counts are read around the map and its serving. The phase's
+   files live under ``chiprun_out/pipeline/`` and are deleted at the end;
+9. a checkpoint round trip at the small fit's size: fit with
    ``checkpoint_dir``, ``NomadProjection.from_checkpoint(dir).transform``
    bit-equal to the fitted estimator's, and the same frozen map served on
    the CPU (plain versions) close to the card's; an inverse head saved
@@ -44,7 +80,7 @@ Phases, each fatal on failure:
    transform, determinism, the lineage v0 → v1 → v2 (served by
    ``registry.load_lineage``), store ≡ array growth, the kNN patch in
    blocks ≡ one batch, and the old rows' quality against a joint refit;
-9. the stream path: the main path's rows written as a bfloat16 sharded
+10. the stream path: the main path's rows written as a bfloat16 sharded
    store under ``chiprun_out/`` and fitted from disk in 65,536-row chunks
    in a child process (its own peak RSS, stage times, launch counts), its
    map serving 4,096 queries from an ``.npy`` memmap and path bit-equal to
@@ -52,7 +88,7 @@ Phases, each fatal on failure:
    RSS, and here with the same chunks: bit-equal to the store's fit; then
    the randomized PCA (D 4096) on the card against the CPU. The store and
    its spill are deleted at the end;
-10. the kernel table (the contract line), then the card, then the result.
+11. the kernel table (the contract line), then the card, then the result.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the repository's ``src/`` is not beside it. Details of every check
@@ -222,6 +258,25 @@ def _check_pair(name, outs, tol, scaled):
     return errs
 
 
+def nomad_pair(args, gbar) -> dict:
+    """K1's forward (with far) and backward on the card and in the plain
+    versions, {output: (kernel, plain)}; the forward without far must give
+    the same loss and m bits as the forward with it."""
+    import torch
+
+    from repro_torch.kernels.nomad_step import ops
+
+    fwd = ops.nomad_step_fwd_cuda(*args, want_far=True)
+    fwd_p = ops.nomad_step_fwd_plain(*args, want_far=True)
+    loss_n, m_n, _ = ops.nomad_step_fwd_cuda(*args)
+    if not (torch.equal(loss_n, fwd[0]) and torch.equal(m_n, fwd[1])):
+        raise AssertionError("nomad_step_fwd without far differs from the forward with far")
+    grads = ops.nomad_step_bwd_cuda(*args[:5], fwd[1], fwd[2], gbar)
+    grads_p = ops.nomad_step_bwd_plain(*args[:5], fwd_p[1], fwd_p[2], gbar)
+    torch.cuda.synchronize()
+    return dict(zip(("loss", "m", "far", "g_i", "g_pos", "g_neg"), zip((*fwd, *grads), (*fwd_p, *grads_p))))
+
+
 def check_nomad_step(device, shapes, main_shape):
     """K1 forward and backward against the plain versions.
 
@@ -239,23 +294,12 @@ def check_nomad_step(device, shapes, main_shape):
 
     from repro_torch.kernels.nomad_step import ops
 
-    def pair(args, gbar):
-        fwd = ops.nomad_step_fwd_cuda(*args, want_far=True)
-        fwd_p = ops.nomad_step_fwd_plain(*args, want_far=True)
-        loss_n, m_n, _ = ops.nomad_step_fwd_cuda(*args)
-        if not (torch.equal(loss_n, fwd[0]) and torch.equal(m_n, fwd[1])):
-            raise AssertionError("nomad_step_fwd without far differs from the forward with far")
-        grads = ops.nomad_step_bwd_cuda(*args[:5], fwd[1], fwd[2], gbar)
-        grads_p = ops.nomad_step_bwd_plain(*args[:5], fwd_p[1], fwd_p[2], gbar)
-        torch.cuda.synchronize()
-        return dict(zip(("loss", "m", "far", "g_i", "g_pos", "g_neg"), zip((*fwd, *grads), (*fwd_p, *grads_p))))
-
     rows = []
     for shape in list(shapes) + [main_shape]:
         B, k, S, K, d = shape
         args = nomad_inputs(B, k, S, K, d, device, seed=sum(shape))
         gbar = torch.full((B,), 1.0 / B, device=device)
-        errs = _check_pair(f"nomad_step at {shape}", pair(args, gbar), ops.TOL, K >= 4096)
+        errs = _check_pair(f"nomad_step at {shape}", nomad_pair(args, gbar), ops.TOL, K >= 4096)
         rows.append({"shape": shape, "plan": ops.plan(K), "max_abs_err": errs, "ok": True})
 
     B, k, S, K, d = main_shape
@@ -772,7 +816,7 @@ def small_quality(device):
 
 
 # ---------------------------------------------------------------------------
-# Phases 5 and 8: serving and the checkpoint round trip
+# Phases 5 and 9: serving and the checkpoint round trip
 # ---------------------------------------------------------------------------
 
 
@@ -1033,12 +1077,7 @@ def check_grown_k(device, K: int) -> dict:
     B, k, S, _, d = NOMAD_MAIN
     args = nomad_inputs(B, k, S, K, d, device, seed=K)
     gbar = torch.full((B,), 1.0 / B, device=device)
-    fwd = k1.nomad_step_fwd_cuda(*args, want_far=True)
-    fwd_p = k1.nomad_step_fwd_plain(*args, want_far=True)
-    grads = k1.nomad_step_bwd_cuda(*args[:5], fwd[1], fwd[2], gbar)
-    grads_p = k1.nomad_step_bwd_plain(*args[:5], fwd_p[1], fwd_p[2], gbar)
-    outs = dict(zip(("loss", "m", "far", "g_i", "g_pos", "g_neg"), zip((*fwd, *grads), (*fwd_p, *grads_p))))
-    e1 = _check_pair(f"nomad_step at K' {K}", outs, k1.TOL, True)
+    e1 = _check_pair(f"nomad_step at K' {K}", nomad_pair(args, gbar), k1.TOL, True)
     g = _gen(device, K + 1)
     th, mu = torch.randn(1024, d, generator=g, device=device) * 3.0, torch.randn(K, d, generator=g, device=device) * 3.0
     w, own = torch.rand(K, generator=g, device=device), torch.randint(0, K, (1024,), generator=g, device=device,
@@ -1687,7 +1726,500 @@ def service_path(device, cfg, fit, est, x):
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: the stream path (fit and serve from an on-disk store)
+# Phase 8: the pipeline (embed a corpus with Phi-4-mini, map, serve, explore)
+# ---------------------------------------------------------------------------
+
+PIPE_ARCH = "phi4-mini-3.8b"
+PIPE_WORKLOAD = "pipeline_phi4_mini"
+PIPE_DOCS = 16_384
+PIPE_SEQ = 128
+PIPE_CLASSES = 8
+PIPE_DOC_BATCH = 128
+PIPE_EQUIV_DOCS = 2_048  # streamed ≡ materialized, and a second embed, on the first documents
+PIPE_EQUIV_CHUNK = 512  # chunk_rows of that check's two fits
+PIPE_HELD_OUT = 1_024  # documents of class_token_corpus(seed=1), placed through MapService
+PIPE_FIT = dict(n_clusters=64, batch_size=2_048, chunk_rows=4_096)
+PIPE_AGREEMENT_K = 10
+PIPE_AGREEMENT_MIN = 3.0 / PIPE_CLASSES  # 0.375: three times chance
+PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, bf16 dense on the tensor cores
+FWD_ARCHS = ("phi4-mini-3.8b", "mamba2-2.7b", "mixtral-8x7b")
+FWD_LAYERS = 2
+FWD_DOCS = 4
+# card fp32 against the CPU's fp32 forward, each token's ‖Δh‖/‖h‖ after the
+# final norm: both sum in float32 over D = 2560-14336 terms in other orders
+# (~√D · 2^-24 ≈ 1e-5 a product), through two layers
+FWD_FP32_REL = 1e-4
+# the bf16 forward against the fp32 one on the card, each token's
+# ‖Δh‖/‖h‖: bf16 keeps 8 bits (unit roundoff 2^-9 ≈ 0.002) and rounds the
+# activations at every product and norm, ~10 times a layer. A token whose
+# MoE route flipped between the two is a different discrete decision; so
+# is every later token of its document, and a token whose capacity slot
+# was won or lost. The median takes all tokens; the max, and the fp32
+# comparison, take each document's tokens before its first such decision
+# (at least one token in all, or the check fails)
+FWD_BF16_REL_MEDIAN = 0.03
+FWD_BF16_REL_MAX = 0.1
+# a routing decision that differs between the card's fp32 and the CPU's
+# must be a near-tie: the two experts' probabilities within this
+ROUTE_TIE = 1e-5
+PIPELINE_REDUCED = [
+    "head_pad_to 16 -> 1, vocab_pad_to 256 -> 1: one card has no tensor axis to divide, so no inert "
+    "heads or vocabulary columns (a layout, not a cut)",
+    "weights: random from a seeded torch.Generator (bf16), not the published checkpoint",
+    f"corpus: class_token_corpus ({PIPE_DOCS:,} documents x {PIPE_SEQ} tokens, {PIPE_CLASSES} classes) "
+    "in place of a text corpus",
+    f"forward checks: {FWD_LAYERS} of the published layers, {FWD_DOCS} documents",
+]
+
+
+def pipeline_arch():
+    """Phi-4-mini at its published widths, heads and vocabulary unpadded."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS[PIPE_ARCH], head_pad_to=1, vocab_pad_to=1)
+    want = dict(n_layers=32, d_model=3072, n_heads=24, head_dim=128, n_kv_heads=8, d_ff=8192,
+                vocab_size=200_064, param_dtype="bfloat16", compute_dtype="bfloat16", attn_chunk=1024)
+    got = {k: getattr(cfg, k) for k in want}
+    if got != want:
+        raise AssertionError(f"{PIPE_ARCH} is not at its published widths: {got}")
+    return cfg
+
+
+def dense_matmul_flops(cfg, seq: int) -> float:
+    """A dense model's matmul FLOPs a token of a ``seq``-token document: the
+    q/k/v/o projections, the SwiGLU and the full (Sq × Sk) score and value
+    products, 2 a multiply-add; the embedding gather is none."""
+    D, hd = cfg.d_model, cfg.head_dim
+    proj = D * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * D
+    attn = 2 * seq * cfg.n_heads * hd
+    return float(cfg.n_layers * 2 * (proj + 3 * D * cfg.d_ff + attn))
+
+
+def hidden_with_routes(model, cfg, toks):
+    """``hidden_states`` of ``toks`` in float32, and every MoE routing
+    decision the forward made (``moe.route_hook``): (probs, expert ids,
+    keep) of each call, on the host."""
+    from repro_torch.data.embeddings import hidden_states
+    from repro_torch.models import moe
+
+    routes = []
+    with moe.route_hook(lambda p, i, k: routes.append((p.float().cpu(), i.cpu(), k.cpu()))):
+        h = hidden_states(model, cfg, tokens=toks).float()
+    return h, routes
+
+
+def route_diffs(a, b, docs: int, seq: int):
+    """Where two runs' routes part: the tokens whose expert ids differ, each
+    one's largest probability gap in run b between the experts chosen, and
+    a (docs, seq) mask of each document's tokens before the first position
+    at which any call's ids or capacity keeps differ. Up to there a token's
+    hidden state is the same function of the same inputs in both runs:
+    attention and the SSM are causal, and an expert's output for a kept
+    token depends on that token alone."""
+    import torch
+
+    first, flips, gaps = torch.full((docs,), seq), 0, []
+    for (_, ia, ka), (pb, ib, kb) in zip(a, b):
+        flip = (ia != ib).any(-1)
+        flips += int(flip.sum())
+        gaps += [float((pb[t, ia[t]] - pb[t, ib[t]]).abs().max()) for t in flip.nonzero().squeeze(1).tolist()]
+        part = (flip | (ka != kb).any(-1)).reshape(docs, seq)
+        first = torch.minimum(first, torch.where(part, torch.arange(seq), seq).amin(-1))
+    return flips, gaps, torch.arange(seq)[None, :] < first[:, None]
+
+
+def forward_check(device, name: str) -> dict:
+    """``name`` at its published widths with ``FWD_LAYERS`` layers, fp32:
+    the card's ``hidden_states`` of ``FWD_DOCS`` documents against the
+    port's CPU forward (``FWD_FP32_REL``; routing decisions compared, each
+    difference a near-tie), then the bf16 forward of the same weights
+    against the fp32 one on the card (``FWD_BF16_REL_*``). The maxima take
+    the tokens :func:`route_diffs` leaves in common."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.synthetic import class_token_corpus
+    from repro_torch.models import lm
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the card's fp32 forward would not be fp32")
+    cfg = dataclasses.replace(ARCHS[name], n_layers=FWD_LAYERS, head_pad_to=1, vocab_pad_to=1,
+                              param_dtype="float32", compute_dtype="float32")
+    toks, _ = class_token_corpus(FWD_DOCS, PIPE_SEQ, cfg.vocab_size, n_classes=PIPE_CLASSES, seed=2)
+    model = lm.init_params(cfg, generator=torch.Generator(device=device).manual_seed(1))
+    h_card, r_card = hidden_with_routes(model, cfg, toks)
+    cpu = copy.deepcopy(model).to("cpu")
+    h_cpu, r_cpu = hidden_with_routes(cpu, cfg, toks)
+    h_cpu = h_cpu.to(device)
+    del cpu
+    flips, gaps, same = route_diffs(r_card, r_cpu, FWD_DOCS, PIPE_SEQ)
+    if any(g > ROUTE_TIE for g in gaps):
+        raise AssertionError(f"{name}: routes differ card vs CPU beyond a near-tie: gaps {gaps}")
+    rel = ((h_card - h_cpu).norm(dim=-1) / h_cpu.norm(dim=-1)).cpu()[same]
+    if not (rel.numel() and float(rel.max()) <= FWD_FP32_REL):
+        raise AssertionError(f"{name}: card fp32 vs CPU over {rel.numel()} tokens, ‖Δ‖/‖h‖ up to "
+                             f"{float(rel.max()) if rel.numel() else None}")
+    cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16", compute_dtype="bfloat16")
+    m16 = lm.cast(model, cfg16)
+    del model
+    h16, r16 = hidden_with_routes(m16, cfg16, toks)
+    del m16
+    flips16, gaps16, same16 = route_diffs(r_card, r16, FWD_DOCS, PIPE_SEQ)
+    rel16 = ((h16 - h_card).norm(dim=-1) / h_card.norm(dim=-1)).cpu()
+    med = float(rel16.median())
+    mx = float(rel16[same16].max()) if same16.any() else None
+    if not (med <= FWD_BF16_REL_MEDIAN and mx is not None and mx <= FWD_BF16_REL_MAX):
+        raise AssertionError(f"{name}: bf16 vs fp32 token ‖Δ‖/‖h‖ median {med}, max {mx} over "
+                             f"{int(same16.sum())} tokens")
+    torch.cuda.empty_cache()
+    keep = same.to(device)
+    return {"arch": name, "layers": FWD_LAYERS, "d_model": cfg.d_model, "docs": FWD_DOCS,
+            "fp32_card_vs_cpu_rel_max": float(rel.max()), "fp32_tol": FWD_FP32_REL,
+            "fp32_card_vs_cpu_abs_max": _max_err(h_card[keep], h_cpu[keep]), "fp32_tokens": int(same.sum()),
+            "routes_checked": sum(int(i.numel()) for _, i, _ in r_card), "route_flips_card_vs_cpu": flips,
+            "route_flip_gaps": gaps, "bf16_vs_fp32_rel_median": med, "bf16_vs_fp32_rel_max": mx,
+            "bf16_max_tokens": int(same16.sum()), "tokens": FWD_DOCS * PIPE_SEQ,
+            "bf16_tol": (FWD_BF16_REL_MEDIAN, FWD_BF16_REL_MAX), "route_flips_bf16": flips16,
+            "route_flip_gaps_bf16_max": max(gaps16, default=None)}
+
+
+def k2_check_scaled(x, c, got, want) -> dict:
+    """K2 against its plain version by its oracle rule, the chosen
+    centroids distance-equivalent with their distances taken from the
+    differences, and each row's minimum held to K3's scaled bound
+    (``pairwise/ops.py:allowed_error``), as ``kmeans_ties`` holds its copy
+    rows: near a zero distance the expansion ‖x‖² + ‖c‖² − 2x·c rounds by
+    more than the rule's 1e-4 at these norms. The rows past the rule's
+    1e-4 are counted, and there the kernel's minimum must lie within the
+    rule's (rtol, atol) of the float64 distance: the rule keeps its
+    strength where the plain version is the side that rounds."""
+    import torch
+
+    from repro_torch.kernels.kmeans_assign import ops as k2
+    from repro_torch.kernels.pairwise.ops import allowed_error
+
+    a_got, a_want = got[0].long(), want[0].long()
+    bound = allowed_error(x[:, None, :], c[a_want][:, None, :])[:, 0, 0]
+    err = (got[1] - want[1]).abs()
+    past = err > k2.TOL[1] + k2.TOL[0] * want[1].abs()
+    truth = torch.sum(torch.square(x[past].double() - c[a_want[past]].double()), -1)
+    off = (got[1][past].double() - truth).abs()
+    row = {"shape": (x.shape[0], c.shape[0], x.shape[1]), "max_abs_err": float(err.max()),
+           "bound_min": float(bound.min()), "argmin_equal_frac": float((a_got == a_want).float().mean()),
+           "rows_past_spec_tol": int(past.sum()), "past_d2_max": float(want[1][past].max()) if past.any() else None,
+           "past_kernel_vs_fp64": float(off.max()) if past.any() else None,
+           "past_plain_vs_fp64": float((want[1][past].double() - truth).abs().max()) if past.any() else None}
+    direct = [torch.sum(torch.square(x - c[a]), -1) for a in (a_got, a_want)]
+    if not (bool(torch.all(err <= bound)) and _close(direct[0], direct[1], *k2.TOL)
+            and bool(torch.all(off <= k2.TOL[1] + k2.TOL[0] * truth))):
+        raise AssertionError(f"kmeans_assign disagrees with its plain version: {row}")
+    return row
+
+
+def check_path_kernels(device, fit, frozen, x, q, placed, *, random: bool) -> dict:
+    """Every kernel of a pipeline path on that path's own data, against its
+    plain version by the kernel phase's rules:
+
+    * K1 at the fit's step: ``batch_size`` heads drawn as the fit draws
+      them (``sample_step_rows``), their kNN rows and weights, in-cell
+      negatives and the cell means, all on the fitted θ;
+    * K2 by :func:`k2_check_scaled`: the build's E-step (all rows ``x``
+      against the K centroids) and a serving batch of the queries ``q``;
+    * K3 by ``allowed_error``: the candidate pass, the in-cell kNN (every
+      cell against itself) and serving's query route (each query, one row,
+      against its cell);
+    * K4 and K5 at a serving batch: the queries' placements ``placed``,
+      their cells and k frozen neighbours with the rank weights, the first
+      step's in-cell negatives; K4's cotangent is K5's gradient to m.
+
+    With ``random`` also K2 and K3 at the build's shapes on random inputs,
+    K2 by its oracle rule as it stands."""
+    import torch
+
+    from repro_torch.core.cauchy import cauchy
+    from repro_torch.core.nomad import local_means, sample_step_rows
+    from repro_torch.core.strategy import LocalStrategy
+    from repro_torch.index.build import seeded_generator
+    from repro_torch.kernels.cauchy_mean import ops as k4
+    from repro_torch.kernels.frozen_attract import ops as k5
+    from repro_torch.kernels.kmeans_assign import ops as k2
+    from repro_torch.kernels.nomad_step import ops as k1
+    from repro_torch.kernels.pairwise import ops as k3
+    from repro_torch.serve.transform import assign_and_knn, rank_weight_table, sample_negative_slots
+
+    cfg, c, cells = frozen.cfg, frozen.centroids, frozen.x_blocks
+    K, D, C = frozen.n_clusters, frozen.dim, frozen.capacity
+    out = {}
+
+    strat = LocalStrategy()
+    theta = strat.prepare(cfg, "nomad", fit.index, frozen.theta_rows.cpu().numpy(), device)
+    idx = strat.idx
+    rows, cl, neg = sample_step_rows(seeded_generator(theta.device, cfg.seed + 1, 0, 0), idx, cfg, "nomad")
+    B, S = neg.shape
+    p_cell = idx["counts"].float() / float(cfg.n_points)
+    args = tuple(t.contiguous() for t in (
+        theta[rows], theta[idx["knn_idx"][rows]], idx["knn_w"][rows], theta[neg],
+        (cfg.n_noise * p_cell[cl] / S)[:, None].expand(B, S), local_means(theta, idx["counts"], C),
+        cfg.n_noise * p_cell, cl.to(torch.int32)))
+    shape = (B, args[1].shape[1], S, K, args[0].shape[1])
+    out["nomad_step[fit]"] = {"shape": shape, "plan": k1.plan(K), "max_abs_err": _check_pair(
+        f"nomad_step on the fit's data at {shape}", nomad_pair(args, torch.full((B,), 1.0 / B, device=device)),
+        k1.TOL, K >= 4096)}
+
+    n = min(cfg.serve_microbatch, q.shape[0])
+    qb, k, S = q[:n], cfg.n_neighbors, cfg.n_exact_negatives
+    own, nb_row, _, nb_valid = assign_and_knn(frozen, qb, k)
+    th = torch.from_numpy(np.ascontiguousarray(placed[:n], np.float32)).to(device)
+    nb_theta = frozen.theta_rows[nb_row].contiguous()
+    nb_w = torch.where(nb_valid, torch.from_numpy(rank_weight_table(k)).to(device)[None, :], 0.0).contiguous()
+    p_cell = frozen.counts.float() / float(frozen.n_points)
+    cell_w, own32, mu = (cfg.n_noise * p_cell).contiguous(), own.to(torch.int32).contiguous(), frozen.means.contiguous()
+    nslot = sample_negative_slots(torch.full((n,), 7, dtype=torch.int64, device=device),
+                                  torch.arange(n, device=device), 0, torch.clamp_min(frozen.counts[own], 1), S)
+    th_neg = frozen.theta_rows[own[:, None] * C + nslot]
+    m = (k4.cauchy_mean_fwd_plain(th, mu, cell_w, own32)
+         + (cfg.n_noise * p_cell[own] / S) * torch.sum(cauchy(th[:, None, :], th_neg), -1)).contiguous()
+    ones = torch.ones(n, device=device)
+    g5, g5_p = k5.frozen_attract_bwd_cuda(th, nb_theta, nb_w, m, ones), k5.frozen_attract_bwd_plain(
+        th, nb_theta, nb_w, m, ones)
+    outs5 = {"loss": (k5.frozen_attract_fwd_cuda(th, nb_theta, nb_w, m), k5.frozen_attract_fwd_plain(
+        th, nb_theta, nb_w, m)), "g_theta": (g5[0], g5_p[0]), "g_m": (g5[1], g5_p[1])}
+    gbar = g5_p[1].contiguous()
+    outs4 = {"s": (k4.cauchy_mean_fwd_cuda(th, mu, cell_w, own32), k4.cauchy_mean_fwd_plain(th, mu, cell_w, own32)),
+             "g_theta": (k4.cauchy_mean_bwd_cuda(th, mu, cell_w, own32, gbar),
+                         k4.cauchy_mean_bwd_plain(th, mu, cell_w, own32, gbar))}
+    torch.cuda.synchronize()
+    out["cauchy_mean[serve batch]"] = {"shape": (n, K, th.shape[1]), "plan": k4.plan(K), "max_abs_err": _check_pair(
+        f"cauchy_mean on the served batch at {(n, K)}", outs4, k4.TOL, K >= 4096)}
+    out["frozen_attract[serve batch]"] = {"shape": (n, k, th.shape[1]), "max_abs_err": _check_pair(
+        f"frozen_attract on the served batch at {(n, k)}", outs5, k5.TOL, False)}
+
+    cell_of = k2.assign_nearest_plain(qb, c)[0].long()
+    for label, rows_ in (("kmeans_assign[build]", x), ("kmeans_assign[serve batch]", qb)):
+        got, want = k2.assign_nearest_cuda(rows_, c), k2.assign_nearest_plain(rows_, c)
+        torch.cuda.synchronize()
+        out[label] = k2_check_scaled(rows_, c, got, want)
+    pairs = [("pairwise[candidates]", (x, c)), ("pairwise[in-cell]", (cells, cells)),
+             ("pairwise[query]", (qb[:256, None, :], cells[cell_of[:256]]))]
+    if random:
+        g = _gen(device, 3072)
+        xr, cr = torch.randn(x.shape, generator=g, device=device), torch.randn(c.shape, generator=g, device=device)
+        got, want = k2.assign_nearest_cuda(xr, cr), k2.assign_nearest_plain(xr, cr)
+        torch.cuda.synchronize()
+        k2.oracle_check(xr, cr, got, want)  # raises on disagreement
+        out["kmeans_assign[random]"] = {"shape": (xr.shape[0], K, D), "max_abs_err": _max_err(got[1], want[1]),
+                                        "argmin_equal_frac": float((got[0] == want[0]).float().mean())}
+        pairs.append(("pairwise[random]", (xr, cr)))
+    for label, (a, b) in pairs:
+        got, want = k3.pairwise_dist2_cuda(a, b), k3.pairwise_dist2_plain(a, b)
+        torch.cuda.synchronize()
+        bound = k3.allowed_error(a, b)
+        if not bool(torch.all((got - want).abs() <= bound)):
+            raise AssertionError(f"{label} disagrees with its plain version at D {D}: {_max_err(got, want)}")
+        out[label] = {"shape": tuple(a.shape[:-1]) + (b.shape[-2], D), "route": k3.route(
+            a.shape[0] if a.dim() == 3 else 1, a.shape[-2], b.shape[-2], D),
+            "max_abs_err": _max_err(got, want), "bound_min": float(bound.min())}
+    return out
+
+
+def knn_class_agreement(v: np.ndarray, classes: np.ndarray, device) -> float:
+    """Share of each row's ``PIPE_AGREEMENT_K`` nearest rows (itself left
+    out, exact, on the card) that hold its class."""
+    from repro_torch.metrics.neighborhood import exact_knn
+
+    nn = exact_knn(v, np.arange(v.shape[0]), PIPE_AGREEMENT_K, device=device)
+    return float((classes[nn] == classes[:, None]).mean())
+
+
+def pipeline_path(device) -> dict:
+    """The embed → map → serve → explore pipeline on the card, the steps
+    the module docstring lists under phase 8. Launch counts are read
+    around the map and its serving (the fit of the embedded corpus, the
+    held-out placements and explore)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import PIPELINE_WORKLOADS
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.data.embeddings import embed_corpus
+    from repro_torch.data.synthetic import class_token_corpus
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+    from repro_torch.pipeline import (embed_to_store, inverse_from_frozen, make_embed_fn, roundtrip_score,
+                                      run_pipeline, save_inverse)
+    from repro_torch.serve import FrozenMap, MapServer
+    from repro_torch.service import MapService
+
+    work = os.path.join(OUT_DIR, "pipeline")
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"reduced": PIPELINE_REDUCED}
+    try:
+        # 4. the forward against the CPU, and bf16 against fp32 (first: the
+        # embed's peak memory below is then its own)
+        out["forward_checks"] = []
+        for name in FWD_ARCHS:
+            t0 = time.time()
+            row = forward_check(device, name)
+            row["check_s"] = time.time() - t0
+            out["forward_checks"].append(row)
+            print(json.dumps({"pipeline_forward_check": row}), flush=True)
+
+        # 1. the embedder at its published widths
+        acfg = pipeline_arch()
+        torch.cuda.synchronize(device)
+        t0 = time.time()
+        model = lm.init_params(acfg, generator=torch.Generator(device=device).manual_seed(0))
+        torch.cuda.synchronize(device)
+        n_params = lm.n_params(model)
+        out["embedder"] = {"arch": acfg.name, "n_layers": acfg.n_layers, "d_model": acfg.d_model,
+                           "vocab": acfg.vocab_size, "dtype": acfg.param_dtype, "init_s": time.time() - t0,
+                           "params": n_params, "param_counts": acfg.param_counts(),
+                           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+        if n_params != acfg.param_counts()["total"]:
+            raise AssertionError(f"{n_params} parameters, param_counts() says {acfg.param_counts()}")
+        print(json.dumps({"pipeline_embedder": out["embedder"]}), flush=True)
+
+        # 2. the corpus, embedded into a store
+        tokens, classes = class_token_corpus(PIPE_DOCS, PIPE_SEQ, acfg.vocab_size, n_classes=PIPE_CLASSES, seed=0)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        held_gb = torch.cuda.memory_allocated(device) / 1e9  # the weights, and what earlier phases left
+        t0 = time.perf_counter()
+        store = embed_to_store(model, acfg, tokens, os.path.join(work, "embeddings"), pool="mean",
+                               doc_batch=PIPE_DOC_BATCH)
+        wall = time.perf_counter() - t0
+        flops = dense_matmul_flops(acfg, PIPE_SEQ) * tokens.size
+        fwd = make_embed_fn(acfg, "mean")
+        b_wall, b_busy = device_busy(device, lambda: fwd(model, tokens[:PIPE_DOC_BATCH]).cpu())
+        out["embed"] = {"docs": PIPE_DOCS, "seq_len": PIPE_SEQ, "doc_batch": PIPE_DOC_BATCH, "tokens": int(tokens.size),
+                        "wall_s": wall, "tokens_per_s": tokens.size / wall, "matmul_flops": flops,
+                        "tflops_per_s": flops / wall / 1e12, "peak_share_bf16": flops / wall / PEAK_BF16_FLOPS,
+                        "peak_device_gb": torch.cuda.max_memory_allocated(device) / 1e9, "held_before_gb": held_gb,
+                        "batch_wall_s": b_wall, "batch_device_s": b_busy, "batch_busy_share": b_busy / b_wall,
+                        "store_shape": store.shape, "store_dtype": store.dtype_name}
+        print(json.dumps({"pipeline_embed": out["embed"]}, default=str), flush=True)
+        x = store.materialize()
+        if x.shape != (PIPE_DOCS, acfg.d_model) or not np.isfinite(x).all():
+            raise AssertionError(f"the store holds {x.shape}, finite {np.isfinite(x).all()}")
+
+        # 3. streamed ≡ materialized, and a second embed, bit for bit
+        first = tokens[:PIPE_EQUIV_DOCS]
+        store2 = embed_to_store(model, acfg, first, os.path.join(work, "embeddings2"), doc_batch=PIPE_DOC_BATCH)
+        mat = embed_corpus(model, acfg, [first[i : i + PIPE_DOC_BATCH] for i in range(0, len(first), PIPE_DOC_BATCH)])
+        if not (np.array_equal(store2.materialize(), mat) and np.array_equal(x[:PIPE_EQUIV_DOCS], mat)):
+            raise AssertionError("the stores' rows differ from embed_corpus's matrix")
+        wl = PIPELINE_WORKLOADS[PIPE_WORKLOAD]
+        ecfg = wl.nomad_config(PIPE_EQUIV_DOCS, acfg.d_model, chunk_rows=PIPE_EQUIV_CHUNK, seed=0)
+        e_store = NomadProjection(ecfg, device=device).fit(store2).embedding
+        e_mat = NomadProjection(ecfg, device=device).fit(mat).embedding
+        if not np.array_equal(e_store, e_mat):
+            raise AssertionError("fit(embed_to_store) differs from fit(embed_corpus)")
+        out["streamed_equal_materialized"] = {"docs": PIPE_EQUIV_DOCS, "chunk_rows": PIPE_EQUIV_CHUNK,
+                                              "store_equal_matrix": True, "rerun_equal": True, "fit_equal": True}
+        shutil.rmtree(os.path.join(work, "embeddings2"))
+
+        # 5. map the corpus: fit, inverse, round trip, as run_pipeline strings them
+        ckdir = os.path.join(work, "map")
+        cfg = wl.nomad_config(PIPE_DOCS, acfg.d_model, checkpoint_dir=ckdir, seed=0, **PIPE_FIT)
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit = NomadProjection(cfg, device=device).fit(store)
+        stage_s = {"embed": wall, "fit": time.perf_counter() - t0}
+        frozen = FrozenMap.from_fit(fit, cfg, device=device)
+        t0 = time.perf_counter()
+        head = inverse_from_frozen(frozen, hidden=(64, 64), steps=600, seed=0)
+        torch.cuda.synchronize(device)
+        stage_s["inverse_train"] = time.perf_counter() - t0
+        save_inverse(ckdir, head)
+        r2 = roundtrip_score(head, fit.embedding, x, device=device)
+        agree_map = knn_class_agreement(fit.embedding, classes, device)
+        agree_vec = knn_class_agreement(x, classes, device)
+        out["map"] = {"config": {k: getattr(cfg, k) for k in ("n_points", "dim", "n_clusters", "n_neighbors",
+                                                             "n_epochs", "batch_size", "chunk_rows")},
+                      "stage_s": stage_s, "fit_stage_s": fit.stage_s, "roundtrip_r2": r2,
+                      "knn10_class_agreement_map": agree_map, "knn10_class_agreement_pooled": agree_vec,
+                      "agreement_min": PIPE_AGREEMENT_MIN, "capacity": cfg.cluster_capacity}
+        print(json.dumps({"pipeline_map": out["map"]}, default=str), flush=True)
+        if not agree_map > PIPE_AGREEMENT_MIN:
+            raise AssertionError(f"the map's 10-NN class agreement {agree_map} is not above {PIPE_AGREEMENT_MIN} "
+                                 f"(pooled vectors: {agree_vec})")
+
+        # 6. serve the pipeline's directory alone
+        held, _ = class_token_corpus(PIPE_HELD_OUT, PIPE_SEQ, acfg.vocab_size, n_classes=PIPE_CLASSES, seed=1)
+        q = embed_corpus(model, acfg, [held[i : i + PIPE_DOC_BATCH] for i in range(0, PIPE_HELD_OUT, PIPE_DOC_BATCH)])
+        svc = MapService(device=device)
+        try:
+            handle = svc.registry.load(ckdir)
+            per_batch = serve_launches_per_batch(cfg)
+            before = registry.launch_counts()
+            placed = svc.project(q, seed=7)
+            after = registry.launch_counts()
+            got = {n: after[n] - before[n] for n in after}
+            coords = fit.embedding[:EXPLORE_ROWS]
+            ex = svc.explore(coords)
+            walls = [svc.explore(coords).wall_s for _ in range(10)]
+            out["launches"] = registry.launch_counts()  # the comparisons below launch too: not counted
+            if got != per_batch:
+                raise AssertionError(f"held-out placement launched {got}, want one batch's {per_batch}")
+            if not _same_result(placed.result, MapServer(handle.frozen).transform(q, seed=7)):
+                raise AssertionError("MapService.project differs from a direct MapServer.transform")
+            dec = handle.inverse.decode(coords, device=device)
+            ids, dists = handle.frozen.neighbors(dec)
+            if not (np.array_equal(ex.embedding, dec) and np.array_equal(ex.neighbor_ids, ids)
+                    and np.array_equal(ex.neighbor_dists, dists)):
+                raise AssertionError("explore differs from FrozenMap.neighbors(decode(coords))")
+            out["serve"] = {"held_out": PIPE_HELD_OUT, "launches_one_batch": got, "equal_direct": True,
+                            "explore_rows": EXPLORE_ROWS, "explore_equal_neighbors_of_decode": True,
+                            "explore_p50_s": float(np.percentile(walls, 50)), "explore_walls_s": walls,
+                            "project_wall_s": placed.wall_s}
+            out["kernels_d3072"] = check_path_kernels(
+                device, fit, handle.frozen, torch.from_numpy(x).to(device), torch.from_numpy(q).to(device),
+                placed.result.embedding, random=True)
+        finally:
+            svc.close()
+        print(json.dumps({"pipeline_serve": out["serve"], "launches": out["launches"]}), flush=True)
+        print(json.dumps({"pipeline_kernels_d3072": out["kernels_d3072"]}), flush=True)
+        del model, frozen, fit, head
+        torch.cuda.empty_cache()
+
+        # 7. run_pipeline for every registered workload, at its own widths
+        out["run_pipeline"] = {}
+        for name, w in sorted(PIPELINE_WORKLOADS.items()):
+            t0 = time.time()
+            r = run_pipeline(w, os.path.join(work, name), device=device)
+            files = sorted(os.listdir(r.checkpoint_dir))
+            if not {"index.npz", "inverse.npz"} <= set(files) or r.store.shape != (w.n_docs, w.d_model):
+                raise AssertionError(f"{name}: artifacts {files}, store {r.store.shape}")
+            s = MapService(device=device)
+            try:
+                s.registry.load(r.checkpoint_dir)
+                ex = s.explore(r.fit.embedding[:8], k=5)
+                ids, _ = r.frozen.neighbors(ex.embedding, k=5)
+                if not np.array_equal(ids, ex.neighbor_ids):
+                    raise AssertionError(f"{name}: explore from map/ differs from the fit's frozen map")
+            finally:
+                s.close()
+            xs = r.store.materialize()
+            xd = torch.from_numpy(xs).to(device)
+            kernels = check_path_kernels(device, r.fit, r.frozen, xd, xd,
+                                         MapServer(r.frozen).transform(xs, seed=7).embedding, random=False)
+            out["run_pipeline"][name] = {"stage_s": r.stage_s, "roundtrip_r2": r.roundtrip_score,
+                                         "store_shape": r.store.shape, "wall_s": time.time() - t0,
+                                         "kernels": kernels}
+        print(json.dumps({"pipeline_run_pipeline": out["run_pipeline"]}, default=str), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the stream path (fit and serve from an on-disk store)
 # ---------------------------------------------------------------------------
 
 STREAM_CHUNK = 65_536  # cfg.chunk_rows: 16 chunks at N = 1M, the last 16,960 rows
@@ -2059,6 +2591,12 @@ def main() -> int:
     service["phase_s"] = time.time() - t0
     print(json.dumps({"service_path": service}), flush=True)
     del est, fit
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    pipeline = pipeline_path(device)
+    pipeline["phase_s"] = time.time() - t0
+    print(json.dumps({"pipeline_path": {k: v for k, v in pipeline.items() if k in ("embed", "map", "serve", "phase_s")}},
+                     default=str), flush=True)
     stream = stream_path(device, x)
     del x
     print(json.dumps({"stream_path": stream}), flush=True)
@@ -2080,7 +2618,7 @@ def main() -> int:
             "launches": fit_n if name in FIT_KERNELS else serve_n,
             "launches_by_path": {"fit": fit_n, "serve": serve_n, "partial": partial["launches"][name],
                                  "stream": stream["stream"]["launches"][name],
-                                 "service": service["launches"][name]},
+                                 "service": service["launches"][name], "pipeline": pipeline["launches"][name]},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
@@ -2102,7 +2640,8 @@ def main() -> int:
              for label, where, port in TPU_KERNELS]
     record = {"card": card, "build_s": build_s, "checks": checks, "timing": timing,
               "main_path": main_res, "small_quality": quality, "serve_path": serve, "partial_path": partial,
-              "service_path": service, "stream_path": stream, "checkpoint_roundtrip": ckpt, "partial_small": small_partial,
+              "service_path": service, "pipeline_path": pipeline, "stream_path": stream,
+              "checkpoint_roundtrip": ckpt, "partial_small": small_partial,
               "tpu_kernels": table, "kernels": kernels}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)

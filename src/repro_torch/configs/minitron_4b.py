@@ -1,0 +1,20 @@
+"""Minitron-4B (pruned Nemotron).
+
+32L d_model=3072 24H (GQA kv=8) d_ff=9216 vocab=256000. [arXiv:2407.14679; hf]
+"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-4b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=9216,
+    vocab_size=256_000,
+    accum_steps=4,
+    source="arXiv:2407.14679",
+)

@@ -8,7 +8,7 @@ from repro_torch.data.store import (
     stream_chunks,
     write_sharded,
 )
-from repro_torch.data.synthetic import gaussian_mixture, gaussian_mixture_store
+from repro_torch.data.synthetic import class_token_corpus, gaussian_mixture, gaussian_mixture_store
 
 __all__ = [
     "ArrayStore",
@@ -16,6 +16,7 @@ __all__ = [
     "MemmapStore",
     "ShardedStore",
     "as_store",
+    "class_token_corpus",
     "gaussian_mixture",
     "gaussian_mixture_store",
     "is_store",

@@ -1,7 +1,8 @@
 """Synthetic corpora standing in for the paper's datasets (port copy).
 
-``gaussian_mixture`` draws with numpy from one seed, so the port and the
-JAX package see the very same rows for the same arguments.
+``gaussian_mixture`` and ``class_token_corpus`` draw with numpy from one
+seed, so the port and the JAX package see the very same rows and tokens
+for the same arguments.
 """
 
 from __future__ import annotations
@@ -68,3 +69,31 @@ def gaussian_mixture_store(
 
     store = write_sharded(chunks(), out_dir, rows_per_shard=rows_per_shard, dtype=dtype)
     return store, labels
+
+
+def class_token_corpus(
+    n_docs: int,
+    seq_len: int,
+    vocab_size: int,
+    n_classes: int = 8,
+    keep: float = 0.7,
+    seed: int = 0,
+):
+    """A token corpus with latent document classes — the embed→map
+    pipeline's stand-in for a real text corpus.
+
+    Each class owns a base token sequence; a document keeps each base
+    token with probability ``keep`` and replaces the rest with uniform
+    noise, so documents of one class share ~``keep`` of their tokens and
+    an embedding model (even an untrained one: mean-pooled token
+    embeddings are class-token histograms) separates the classes.
+
+    Returns ``(tokens (n_docs, seq_len) int32, classes (n_docs,) int64)``.
+    """
+    rng = np.random.default_rng(seed)
+    classes = rng.integers(0, n_classes, n_docs)
+    base = rng.integers(0, vocab_size, (n_classes, seq_len))
+    noise = rng.integers(0, vocab_size, (n_docs, seq_len))
+    mask = rng.random((n_docs, seq_len)) < keep
+    tokens = np.where(mask, base[classes], noise).astype(np.int32)
+    return tokens, classes

@@ -1,0 +1,196 @@
+"""Attention: GQA with RoPE, optional qk-norm and sliding windows (port of
+the JAX package's ``models/attention.py``, the sequence forward).
+
+The weights keep the reference's head-major layout, ``wq (D, H, hd)``,
+``wk/wv (D, KV, hd)``, ``wo (H, hd, D)``, so carrying the JAX package's
+weights across is a copy. A projection runs as one matrix product over the
+flattened ``(H, hd)`` axis, which is the reference's einsum. GQA repeats
+k/v to H heads at use.
+
+Two execution paths, numerically equivalent (tested against each other and
+against the JAX functions):
+
+* ``attend_full``     — materialises the (Sq, Sk) score matrix; the oracle.
+* ``attend_chunked``  — online softmax over (q-chunk, kv-chunk) tiles, two
+  Python loops in place of the reference's double ``lax.scan``; live
+  memory O(Sq·chunk). The reference's ``attend_flash`` runs this same
+  forward under a custom VJP for training; its backward is not ported.
+
+Both compute as the reference writes them: scores of bf16 operands
+accumulated in float32 (the reference's ``preferred_element_type``), the
+softmax in float32, probabilities cast to v's dtype. This attention is
+plain PyTorch, as it was jnp in the reference; no fused library attention
+stands in for it, so the port keeps parity with ``attend_full`` term by
+term. Layouts: q (B, S, H, hd); k/v (B, S, KV, hd).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.layers import apply_rope, dtype_of, frozen, normal, rms_norm
+
+NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+
+
+class AttnParams(torch.nn.Module):
+    """One attention block's weights; :meth:`forward` is
+    :func:`attention_block`."""
+
+    def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = frozen(wq), frozen(wk), frozen(wv), frozen(wo)
+        # qwen3-style qk-norm weights (hd,), or None
+        self.q_norm = None if q_norm is None else frozen(q_norm)
+        self.k_norm = None if k_norm is None else frozen(k_norm)
+
+    def forward(self, x, positions, cfg, *, causal: bool):
+        return attention_block(self, x, positions, cfg, causal=causal)
+
+
+def init_attention(gen: torch.Generator, cfg) -> AttnParams:
+    dt = dtype_of(cfg.param_dtype)
+    D, hd, KV = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
+    Hp = cfg.n_heads_padded  # pad heads live but masked (head_mask)
+    s_in = 1.0 / np.sqrt(D)
+    s_out = 1.0 / np.sqrt(cfg.n_heads * hd)
+    norm = (lambda: torch.ones((hd,), dtype=dt, device=gen.device)) if cfg.qk_norm else (lambda: None)
+    return AttnParams(
+        wq=normal(gen, (D, Hp, hd), s_in, dt),
+        wk=normal(gen, (D, KV, hd), s_in, dt),
+        wv=normal(gen, (D, KV, hd), s_in, dt),
+        wo=normal(gen, (Hp, hd, D), s_out, dt),
+        q_norm=norm(),
+        k_norm=norm(),
+    )
+
+
+def head_mask(cfg, device=None) -> Optional[torch.Tensor]:
+    """(Hp,) 1/0 mask: within each kv group of g_pad padded q slots, the
+    first g are real. Masking attention outputs keeps pad heads inert."""
+    Hp, H, KV = cfg.n_heads_padded, cfg.n_heads, max(cfg.n_kv_heads, 1)
+    if Hp == H:
+        return None
+    g, g_pad = H // KV, Hp // KV
+    return (torch.arange(Hp, device=device) % g_pad < g).float()
+
+
+def _project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhe->bshe", x, w)`` as one product over (h, e)."""
+    D, H, E = w.shape
+    return (x @ w.reshape(D, H * E)).unflatten(-1, (H, E))
+
+
+def qkv_project(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, cfg):
+    """x (B, S, D) → q (B,S,H,hd), k/v (B,S,KV,hd), RoPE'd and normed."""
+    q = _project_heads(x, p.wq)
+    k = _project_heads(x, p.wk)
+    v = _project_heads(x, p.wv)
+    if p.q_norm is not None:
+        q = rms_norm(q, p.q_norm)
+        k = rms_norm(k, p.k_norm)
+    if not cfg.encoder_only:  # the audio encoder is position-free (stub CNN)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, KV, hd) → (B, S, H, hd) by repeating each kv head H/KV times."""
+    kv = k.shape[2]
+    if kv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // kv, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Full (oracle) attention
+# ---------------------------------------------------------------------------
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool, window: int) -> torch.Tensor:
+    """(…, Sq, Sk) additive bias: 0 where visible, NEG_INF elsewhere."""
+    d = q_pos[..., :, None] - k_pos[..., None, :]
+    ok = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    if causal:
+        ok &= d >= 0
+    if window > 0:
+        ok &= d < window
+    zero = torch.zeros((), dtype=torch.float32, device=d.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``einsum("bqhe,bkhe->bhqk", q, k, preferred_element_type=f32)``:
+    bf16 products are exact in float32, so widening first keeps them."""
+    return q.float().transpose(1, 2) @ k.float().permute(0, 2, 3, 1)
+
+
+def attend_full(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0) -> torch.Tensor:
+    H, hd = q.shape[-2], q.shape[-1]
+    k, v = repeat_kv(k, H), repeat_kv(v, H)
+    scale = 1.0 / np.sqrt(hd)
+    scores = _scores(q, k) * scale
+    bias = _mask_bias(q_pos, k_pos, causal, window)  # (B, Sq, Sk)
+    probs = torch.softmax(scores + bias[:, None, :, :], dim=-1).to(v.dtype)
+    return (probs @ v.transpose(1, 2)).transpose(1, 2)  # (B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# Chunked (memory-efficient) attention
+# ---------------------------------------------------------------------------
+
+
+def attend_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0, chunk: int = 1024):
+    """Online-softmax attention; O(Sq·chunk) live memory instead of O(Sq·Sk).
+
+    Outer loop over q chunks, inner loop over kv chunks with the running
+    (max, sum, acc) recurrence, in float32. Fully-masked tiles still run,
+    as in the reference's static schedule.
+    """
+    B, Sq, H, hd = q.shape
+    k, v = repeat_kv(k, H), repeat_kv(v, H)
+    Sk = k.shape[1]
+    cq, ck = min(chunk, Sq), min(chunk, Sk)
+    if Sq % cq or Sk % ck:
+        raise ValueError(f"sequence lengths {(Sq, Sk)} are not multiples of the chunk {chunk}")
+    scale = 1.0 / np.sqrt(hd)
+    outs = []
+    for qs in range(0, Sq, cq):
+        qi, qpi = q[:, qs : qs + cq], q_pos[:, qs : qs + cq]
+        m = torch.full((B, H, cq), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, cq, hd), dtype=torch.float32, device=q.device)
+        for ks in range(0, Sk, ck):
+            ki, vi, kpi = k[:, ks : ks + ck], v[:, ks : ks + ck], k_pos[:, ks : ks + ck]
+            s = _scores(qi, ki) * scale + _mask_bias(qpi, kpi, causal, window)[:, None, :, :]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            # einsum(p.astype(v.dtype), v, preferred_element_type=f32)
+            acc = acc * corr[..., None] + p.to(vi.dtype).float() @ vi.float().transpose(1, 2)
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-37)[..., None]  # (B, H, cq, hd)
+        outs.append(out.transpose(1, 2))  # (B, cq, H, hd)
+    return torch.cat(outs, dim=1).to(v.dtype)
+
+
+def attention_block(p: AttnParams, x, positions, cfg, *, causal: bool) -> torch.Tensor:
+    """Projection → attention → output projection (sequence forward). Past
+    ``cfg.attn_chunk`` tokens it takes the chunked path, whose forward is
+    the reference's for both ``attn_impl`` values."""
+    q, k, v = qkv_project(p, x, positions, cfg)
+    window = cfg.sliding_window
+    if x.shape[1] > cfg.attn_chunk:
+        out = attend_chunked(q, k, v, positions, positions, causal=causal, window=window, chunk=cfg.attn_chunk)
+    else:
+        out = attend_full(q, k, v, positions, positions, causal=causal, window=window)
+    hm = head_mask(cfg, x.device)
+    if hm is not None:
+        out = out * hm[None, None, :, None].to(out.dtype)
+    B, S, Hp, hd = out.shape
+    return out.reshape(B, S, Hp * hd) @ p.wo.reshape(Hp * hd, -1)

@@ -23,7 +23,8 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.core.strategy, repro_torch.kernels.registry\n"
         "import repro_torch.serve, repro_torch.serve.transform, repro_torch.checkpoint\n"
         "import repro_torch.service, repro_torch.service.app, repro_torch.pipeline.inverse\n"
-        "import repro_torch.optim, repro_torch.pipeline\n"
+        "import repro_torch.optim, repro_torch.pipeline, repro_torch.pipeline.embed, repro_torch.pipeline.run\n"
+        "import repro_torch.models, repro_torch.models.convert, repro_torch.data.embeddings, repro_torch.configs\n"
         "from repro_torch.kernels import registry\n"
         "registry.names()  # imports every kernel module\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
