@@ -71,16 +71,44 @@ Phases, each fatal on failure:
    synthetic corpus, and 2 layers and 4 documents in the forward checks.
    Launch counts are read around the map and its serving. The phase's
    files live under ``chiprun_out/pipeline/`` and are deleted at the end;
-9. a checkpoint round trip at the small fit's size: fit with
-   ``checkpoint_dir``, ``NomadProjection.from_checkpoint(dir).transform``
+9. the LM's serving path (``decode_path``): prefill into the KV/SSM cache,
+   then ``decode_step``. First, at the published widths with 2 layers in
+   fp32 (TF32 off): Phi-4-mini (4 prompts of 1,016 tokens, 8 steps),
+   Mamba-2 (4 of 512, 8 steps) and Mixtral (1 of 8,190 tokens, past its
+   4,096 window, so the prefill lands in the ring; the 6 steps write slots
+   4094, 4095, 0, ..., 3, a further wrap; drop-free capacity 4.0): every
+   step's logits within 1e-4 of the full forward's (‖Δ‖/‖logits‖ a
+   sequence) and the last step on the card within 1e-4 of the port's CPU
+   step from the same cache. Then Phi-4-mini at full depth (the pipeline
+   phase's seeded weights, bf16) prefills 16 prompts of 2,048 tokens (two
+   attention chunks) and decodes 256 greedy tokens into a cache of 2,304:
+   prefill wall, tokens/s and TFLOP/s against the bf16 peak, each step's
+   CUDA-event ms (p50, p99), decode tokens/s, one step's busy share, the
+   step's bytes bound (weights + the cache read at 3.35 TB/s), peak device
+   memory; a rerun gives the same continuations bit for bit; one bf16
+   decode step after a 1,023-token prefill against the forward at 1,024
+   (median ≤ 0.03, max ≤ 0.1). The continuations are looked up as
+   ``examples/serve_lm.py --map-lookup`` does: a 512-document corpus
+   embedded by the same model into a store, a small map fitted (K 8, 4
+   epochs) and frozen, each prompt's tail + continuation (1,024 tokens)
+   embedded and ``FrozenMap.neighbors(·, k=3)`` asked, with one batch's K2
+   and K3 launches. Mamba-2 2.7B (64 layers, bf16) serves the same batch
+   with the same numbers. The launch counts of the map fit and the lookup
+   are the ``decode`` path's;
+10. a checkpoint round trip at the small fit's size: fit with
+   ``checkpoint_dir`` (saved by the asynchronous writer),
+   ``NomadProjection.from_checkpoint(dir).transform``
    bit-equal to the fitted estimator's, and the same frozen map served on
    the CPU (plain versions) close to the card's; an inverse head saved
-   beside it, picked up by ``registry.swap(dir)`` and served; then
+   beside it, picked up by ``registry.swap(dir)`` and served; the same fit
+   saved by a synchronous writer leaves the same checkpoints (arrays and
+   manifests), and a fit stopped right after a save returns has committed
+   it and resumes bit-equal to the uninterrupted fit; then
    ``partial_fit`` at that size (``partial_small``): place-only ≡
    transform, determinism, the lineage v0 → v1 → v2 (served by
    ``registry.load_lineage``), store ≡ array growth, the kNN patch in
    blocks ≡ one batch, and the old rows' quality against a joint refit;
-10. the stream path: the main path's rows written as a bfloat16 sharded
+11. the stream path: the main path's rows written as a bfloat16 sharded
    store under ``chiprun_out/`` and fitted from disk in 65,536-row chunks
    in a child process (its own peak RSS, stage times, launch counts), its
    map serving 4,096 queries from an ``.npy`` memmap and path bit-equal to
@@ -88,7 +116,7 @@ Phases, each fatal on failure:
    RSS, and here with the same chunks: bit-equal to the store's fit; then
    the randomized PCA (D 4096) on the card against the CPU. The store and
    its spill are deleted at the end;
-11. the kernel table (the contract line), then the card, then the result.
+12. the kernel table (the contract line), then the card, then the result.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the repository's ``src/`` is not beside it. Details of every check
@@ -816,7 +844,7 @@ def small_quality(device):
 
 
 # ---------------------------------------------------------------------------
-# Phases 5 and 9: serving and the checkpoint round trip
+# Phases 5 and 10: serving and the checkpoint round trip
 # ---------------------------------------------------------------------------
 
 
@@ -992,8 +1020,10 @@ def checkpoint_roundtrip(device):
         raise AssertionError(f"card vs CPU: cells equal {np.array_equal(a.cells, c.cells)}, "
                              f"ids equal on {same_ids.mean():.4f}, max |Δθ| {err} (scale {scale})")
     head = small_head_swap(device, est, fit, x, q, a, ckdir)
+    writer = async_checkpoints(device, cfg, x, fit, ckdir)
     return {
         "checkpoint": "small fit (5000×32, K 8): the full-width 3.8 GB x_rows cache is not written",
+        "async_writer": writer,
         "checkpoint_epochs": fit.checkpoint_epochs,
         "from_checkpoint_bit_equal": True,
         "cpu_cells_equal": True,
@@ -1002,6 +1032,91 @@ def checkpoint_roundtrip(device):
         "embedding_scale": scale,
         "inverse_swap": head,
     }
+
+
+class StopFit(Exception):
+    """Raised by a callback to interrupt a fit."""
+
+
+def read_checkpoints(ckdir: str) -> dict:
+    """Every step directory's manifest (its config's ``checkpoint_dir``
+    dropped) and every array of every shard: what must agree between two
+    writers (not the raw bytes: a zip entry carries its write time)."""
+    out = {}
+    for name in sorted(n for n in os.listdir(ckdir) if n.startswith("step_")):
+        with open(os.path.join(ckdir, name, "manifest.json")) as f:
+            manifest = json.load(f)
+        manifest["metadata"]["config"].pop("checkpoint_dir")
+        files = {"manifest": manifest}
+        for shard in sorted(n for n in os.listdir(os.path.join(ckdir, name)) if n.endswith(".npz")):
+            with np.load(os.path.join(ckdir, name, shard)) as z:
+                files[shard] = {k: z[k] for k in z.files}
+        out[name] = files
+    return out
+
+
+def same_checkpoints(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[s].keys() == b[s].keys() and a[s]["manifest"] == b[s]["manifest"]
+        and all(a[s][f].keys() == b[s][f].keys() and all(np.array_equal(a[s][f][k], b[s][f][k])
+                                                           and a[s][f][k].dtype == b[s][f][k].dtype for k in a[s][f])
+                for f in a[s] if f != "manifest")
+        for s in a)
+
+
+def async_checkpoints(device, cfg, x, fit, ckdir) -> dict:
+    """The fit's asynchronous writer on the card (``fit`` saved through it
+    into ``ckdir``): the same fit saved by a synchronous writer leaves the
+    same checkpoints, array for array and in its manifests; a fit stopped
+    right after a save returns (its write in flight) has committed that
+    save, and ``fit(resume=True)`` from it is bit-equal to ``fit``."""
+    import shutil
+
+    import repro_torch.checkpoint as ck_mod
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.core.strategy import FitCallbacks
+
+    made = []
+
+    class Sync(ck_mod.Checkpointer):
+        def __init__(self, directory, **kw):
+            made.append(kw)
+            super().__init__(directory, **dict(kw, async_save=False))
+
+    sync_dir, stop_dir = ckdir + "_sync", ckdir + "_stopped"
+    writer, ck_mod.Checkpointer = ck_mod.Checkpointer, Sync
+    try:
+        NomadProjection(cfg.replace(checkpoint_dir=sync_dir), device=device).fit(x)
+    finally:
+        ck_mod.Checkpointer = writer
+    a, b = read_checkpoints(ckdir), read_checkpoints(sync_dir)
+    if made != [{"keep": 3, "async_save": True}] or not a or not same_checkpoints(a, b):
+        raise AssertionError(f"async vs sync checkpoints differ (writer arguments {made}, steps {sorted(a)} / "
+                             f"{sorted(b)})")
+    stop_at = fit.checkpoint_epochs[len(fit.checkpoint_epochs) // 2]
+
+    class Stop(FitCallbacks):
+        wants_embedding = False
+
+        def on_checkpoint(self, event):
+            if event.epoch == stop_at:
+                raise StopFit(event.epoch)
+
+    try:
+        NomadProjection(cfg.replace(checkpoint_dir=stop_dir), device=device).fit(x, callbacks=[Stop()])
+        raise AssertionError("the fit ran past its stop")
+    except StopFit:
+        pass
+    committed = ck_mod.latest_step(stop_dir)
+    resumed = NomadProjection(cfg.replace(checkpoint_dir=stop_dir), device=device).fit(x, resume=True)
+    if not (committed == stop_at and resumed.start_epoch == stop_at + 1
+            and np.array_equal(resumed.embedding, fit.embedding)):
+        raise AssertionError(f"stopped after the save of epoch {stop_at}: committed {committed}, resumed at "
+                             f"{resumed.start_epoch}, equal {np.array_equal(resumed.embedding, fit.embedding)}")
+    shutil.rmtree(sync_dir, ignore_errors=True)
+    shutil.rmtree(stop_dir, ignore_errors=True)
+    return {"steps_compared": sorted(a), "async_equal_sync": True, "stopped_after_save_of": stop_at,
+            "committed_on_stop": committed, "resume_bit_equal_uninterrupted": True}
 
 
 def small_head_swap(device, est, fit, x, q, served, ckdir):
@@ -1457,8 +1572,9 @@ def drive_clients(svc, schedule, stop=None, after_stop=2):
     return got, wall
 
 
-def device_busy(device, fn):
-    """``fn()`` under torch.profiler: (its wall s, the device's kernel time s)."""
+def device_breakdown(device, fn, top: int = 0):
+    """``fn()`` under torch.profiler: (its wall s, the device's kernel time
+    s, the ``top`` kernels by device time as (name, ms, calls))."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1469,8 +1585,15 @@ def device_busy(device, fn):
         fn()
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    return wall, busy / 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return wall, busy / 1e6, [(e.key[:120], e.self_device_time_total / 1e3, e.count) for e in ranked]
+
+
+def device_busy(device, fn):
+    """``fn()`` under torch.profiler: (its wall s, the device's kernel time s)."""
+    return device_breakdown(device, fn)[:2]
 
 
 def _same_result(got, want) -> bool:
@@ -2219,7 +2342,430 @@ def pipeline_path(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the stream path (fit and serve from an on-disk store)
+# Phase 9: the LM's serving path (prefill into the KV/SSM cache, decode)
+# ---------------------------------------------------------------------------
+
+DECODE_BATCH = 16
+DECODE_PROMPT = 2_048  # Phi-4-mini: two attention chunks of 1024; Mamba-2: eight SSD chunks of 256
+DECODE_NEW = 256  # greedy decode steps after the prefill's own next token
+DECODE_MAMBA = "mamba2-2.7b"
+# fp32 decode against the full forward, and the card's step against the
+# CPU's, ‖Δ logits‖/‖logits‖ a sequence: both sum in float32 over D =
+# 2560-14336 terms in other orders, through two layers (as FWD_FP32_REL)
+DECODE_FP32_REL = 1e-4
+# (batch, prompt, decode steps) of the fp32 parity checks at 2 layers. Phi-4-mini:
+# prompt and forward within attn_chunk (the full path). Mamba-2: two SSD
+# chunks. Mixtral: a prompt past its 4,096 window (the ring branch of
+# load_cache_from_prefill: slots 0-4093 hold positions 4096-8189), then the
+# decode at positions 8190-8195 writes slots 4094, 4095, 0, 1, 2, 3: a further wrap
+DECODE_PARITY = {"phi4-mini-3.8b": (4, 1_016, 8), "mamba2-2.7b": (4, 512, 8), "mixtral-8x7b": (1, 8_190, 6)}
+DECODE_BF16 = (4, 1_024)  # batch, forward length: prefill all but the last token, one decode step
+# the bf16 decode's distance to the fp32 forward against the bf16
+# forward's own, ‖Δ‖/‖logits‖ a sequence: both round the same activations
+# to 8 bits at the same points, so the decode may lose a quarter more than
+# the forward, no more. The forward checks' bounds (FWD_BF16_REL_*) on
+# the bf16 decode against the bf16 forward hold Phi-4-mini's 32 layers;
+# Mamba-2's bf16 forward alone lies ~0.05 from its fp32 forward after 64
+# layers, so its two bf16 paths part by about as much: only this bound
+# applies there
+DECODE_BF16_EXCESS = 1.25
+DECODE_CORPUS = (512, 256)  # documents, tokens: the map lookup's corpus (examples/serve_lm.py --map-lookup)
+DECODE_WINDOW = 1_024  # tokens of prompt + continuation embedded for the lookup (the full path)
+DECODE_MAP = dict(n_clusters=8, n_epochs=4, batch_size=512, chunk_rows=1024)  # the example's NomadConfig
+DECODE_REDUCED = [
+    f"decode_32k: global_batch 128 -> {DECODE_BATCH} and seq_len 32,768 -> {DECODE_PROMPT + DECODE_NEW:,} "
+    f"(a {DECODE_PROMPT:,}-token prompt and {DECODE_NEW} steps): one card's memory under the plain decode "
+    "attention, and the script's time limit",
+    "weights: random from a seeded torch.Generator (bf16), not the published checkpoints",
+    "head_pad_to 16 -> 1, vocab_pad_to 256 -> 1 (one card, no tensor axis; a layout, not a cut)",
+    "fp32 parity: 2 of the published layers; Mixtral's capacity_factor 1.25 -> 4.0 = E/top_k (drop-free, "
+    "so decode and the forward route alike); attn_chunk and ssm_chunk cut, where a sequence exceeds them, to "
+    "the largest divisor of its length (Mixtral: 910 for the 8,190-token prefill, 683 for the 8,196-token "
+    "forward; Mamba-2: 130 for the 520-token forward), as both packages need whole chunks",
+    f"map lookup: the corpus is {DECODE_CORPUS[0]} documents x {DECODE_CORPUS[1]} tokens of the prompts' "
+    f"class_token_corpus, and a continuation is embedded with the last {DECODE_WINDOW - DECODE_NEW - 1} prompt "
+    f"tokens ({DECODE_WINDOW} in all: 2,305 tokens are not a whole number of attention chunks)",
+]
+
+
+def chunked(cfg, n: int):
+    """``cfg`` with ``attn_chunk`` and ``ssm_chunk`` cut, where ``n`` tokens
+    exceed them, to the largest divisor of ``n`` not above them: both
+    packages need a sequence longer than a chunk to be whole chunks."""
+    import dataclasses
+
+    def cut(c: int) -> int:
+        return c if n <= c else max(d for d in range(1, c + 1) if n % d == 0)
+
+    return dataclasses.replace(cfg, attn_chunk=cut(cfg.attn_chunk), ssm_chunk=cut(cfg.ssm_chunk))
+
+
+def ssm_matmul_flops(cfg, seq: int) -> float:
+    """A Mamba-2 model's matmul FLOPs a token of a ``seq``-token prefill in
+    SSD chunks of Q = min(ssm_chunk, seq): the z/x/B/C/Δ and output
+    projections, the chunk's C·B scores and their product with x, the
+    carried state's read (C·h) and the chunk state's update (x ⊗ B), 2 a
+    multiply-add; the convs, norms and gates are none."""
+    D, di, N, H, P = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    Q = min(cfg.ssm_chunk, seq)
+    return float(cfg.n_layers * 2 * (D * (2 * di + 2 * N + H) + di * D + Q * N + Q * H * P + 2 * H * P * N))
+
+
+def last_logits(model, cfg, tokens, first: int):
+    """The full forward's logits at positions ``first`` … (B, n − first, V)
+    fp32: the hidden states of the whole sequence, then only those rows
+    through the final norm and the vocabulary product."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.layers import rms_norm
+
+    with torch.inference_mode():
+        x, _, _ = lm.body(model, cfg, lm.embed_in(model, cfg, tokens=tokens))
+        return lm.logits_out(model, cfg, rms_norm(x[:, first:], model.final_ln))
+
+
+def seq_rel(got, want):
+    """‖Δ‖/‖want‖ over the vocabulary, a sequence (and a step), on the host."""
+    return ((got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1)).cpu()
+
+
+def decode_parity(device, name: str) -> dict:
+    """``name`` at its published widths with 2 layers, fp32 (TF32 off):
+    prefill, then decode steps against the full forward over the same
+    tokens (``DECODE_FP32_REL`` a sequence, every step), and the last step
+    on the card against the port's CPU step from the same cache and
+    weights."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import lm, steps
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the card's fp32 decode would not be fp32")
+    B, P, n_steps = DECODE_PARITY[name]
+    base = ARCHS[name]
+    cfg = dataclasses.replace(base, n_layers=FWD_LAYERS, head_pad_to=1, vocab_pad_to=1, param_dtype="float32",
+                              compute_dtype="float32")
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts) / cfg.top_k)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (B, P + n_steps)).astype(np.int32)
+    model = lm.init_params(cfg, generator=torch.Generator(device=device).manual_seed(1))
+    pre_cfg, full_cfg = chunked(cfg, P), chunked(cfg, P + n_steps)
+    t0 = time.time()
+    _, stacked = steps.make_prefill_step(pre_cfg)(model, {"tokens": toks[:, :P]})
+    cache = lm.load_cache_from_prefill(cfg, lm.init_cache(cfg, B, P + n_steps, filled=P, device=device), stacked, P)
+    del stacked
+    ring = "k" in cache and cache["k"].shape[2] < P
+    decode, got = steps.make_decode_step(cfg), []
+    for t in range(P, P + n_steps):
+        if t == P + n_steps - 1:
+            before = {k: (v.cpu().clone() if k != "idx" else v) for k, v in cache.items()}
+        logits, cache = decode(model, cache, toks[:, t : t + 1])
+        got.append(logits[:, 0])
+    slots = [t % cache["k"].shape[2] for t in range(P, P + n_steps)] if "k" in cache else None
+    want = last_logits(model, full_cfg, toks, P)
+    rel = seq_rel(torch.stack(got, 1), want)  # (B, steps)
+    torch.cuda.synchronize(device)
+    card_s = time.time() - t0
+    cpu = copy.deepcopy(model).to("cpu")
+    cpu_logits, _ = lm.decode_step(cpu, cfg, before, toks[:, P + n_steps - 1 : P + n_steps])
+    del cpu, before
+    rel_cpu = seq_rel(got[-1].cpu(), cpu_logits[:, 0])
+    out = {"arch": name, "layers": FWD_LAYERS, "d_model": cfg.d_model, "batch": B, "prompt": P,
+           "decode_steps": n_steps, "attn_chunk": [pre_cfg.attn_chunk, full_cfg.attn_chunk],
+           "ssm_chunk": [pre_cfg.ssm_chunk, full_cfg.ssm_chunk], "capacity_factor": cfg.capacity_factor,
+           "cache_slots": None if "k" not in cache else int(cache["k"].shape[2]), "ring_at_prefill": ring,
+           "decode_slots": slots, "rel_vs_forward_max": float(rel.max()), "rel_vs_forward_last": float(rel[:, -1].max()),
+           "rel_card_vs_cpu": float(rel_cpu.max()), "tol": DECODE_FP32_REL,
+           "argmax_equal_forward": float((torch.stack(got, 1).argmax(-1) == want.argmax(-1)).float().mean()),
+           "card_s": card_s}
+    del model, cache, got, want
+    torch.cuda.empty_cache()
+    if not (rel.max() <= DECODE_FP32_REL and rel_cpu.max() <= DECODE_FP32_REL):
+        raise AssertionError(f"{name}: fp32 decode vs forward {float(rel.max())}, card vs CPU "
+                             f"{float(rel_cpu.max())} (tol {DECODE_FP32_REL})")
+    if name == "mixtral-8x7b" and not (ring and 0 in slots and slots[0] > slots[-1]):
+        raise AssertionError(f"mixtral's check did not wrap the ring: prefill ring {ring}, slots {slots}")
+    return out
+
+
+def greedy(device, model, cfg, prompts, new: int, busy_step=None):
+    """Prefill ``prompts`` (B, P), then ``new`` greedy decode steps on the
+    card: (tokens (B, new + 1) on the host, the last logits, prefill wall
+    s, decode wall s, each step's CUDA-event ms, the profiled step's
+    (wall s, device s) or None). The argmax stays on the card; the
+    profiled step (``busy_step``) is left out of the step times."""
+    import torch
+
+    from repro_torch.models import lm, steps
+
+    B, P = prompts.shape
+    decode = steps.make_decode_step(cfg)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    logits, stacked = steps.make_prefill_step(cfg)(model, {"tokens": prompts})
+    cache = lm.load_cache_from_prefill(cfg, lm.init_cache(cfg, B, P + new, filled=P, device=device), stacked, P)
+    del stacked
+    torch.cuda.synchronize(device)
+    prefill_s = time.perf_counter() - t0
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    out, events, busy = [tok], [], None
+    t0 = time.perf_counter()
+    for i in range(new):
+        if i == busy_step:
+            holder = {}
+
+            def one():
+                holder["r"] = decode(model, cache, tok)
+
+            busy = device_breakdown(device, one, top=12)
+            logits, cache = holder["r"]
+        else:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            logits, cache = decode(model, cache, tok)
+            e1.record()
+            events.append((e0, e1))
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(tok)
+    torch.cuda.synchronize(device)
+    decode_s = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in events]
+    if cache["idx"] != P + new:
+        raise AssertionError(f"the cache's idx is {cache['idx']} after {new} steps from {P}")
+    return torch.cat(out, 1).cpu().numpy(), logits, prefill_s, decode_s, ms, busy
+
+
+def serve_lm(device, model, cfg, prompts, flops_per_token: float, state_bytes: float):
+    """The slice at full depth: prefill ``prompts``, ``DECODE_NEW`` greedy
+    steps, timed; a rerun from the same weights must give the same
+    continuations and last logits bit for bit. ``state_bytes`` is what a
+    step reads of the cache (and an SSM writes back). Returns (the
+    numbers, the continuations (B, DECODE_NEW + 1) on the host)."""
+    import torch
+
+    B, P = prompts.shape
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    toks, last, prefill_s, decode_s, ms, busy = greedy(device, model, cfg, prompts, DECODE_NEW,
+                                                      busy_step=DECODE_NEW // 2)
+    peak = torch.cuda.max_memory_allocated(device)
+    toks2, last2, prefill2_s, decode2_s, ms2, _ = greedy(device, model, cfg, prompts, DECODE_NEW)
+    if not (np.array_equal(toks, toks2) and torch.equal(last, last2)):
+        raise AssertionError(f"{cfg.name}: a rerun decodes other tokens "
+                             f"({int((toks != toks2).sum())} of {toks.size} differ)")
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    bound_ms = (param_bytes + state_bytes) / PEAK_BYTES_PER_S * 1e3
+    flops = flops_per_token * B * P
+    p50, p99 = float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+    if not np.isfinite(last.float().cpu().numpy()).all():
+        raise AssertionError(f"{cfg.name}: non-finite logits after {DECODE_NEW} steps")
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+            "params": sum(p.numel() for p in model.parameters()), "param_bytes": param_bytes,
+            "batch": B, "prompt": P, "new_tokens": DECODE_NEW, "cache_capacity": P + DECODE_NEW,
+            "prefill_s": prefill_s, "prefill_tokens_per_s": B * P / prefill_s, "prefill_matmul_flops": flops,
+            "prefill_tflops_per_s": flops / prefill_s / 1e12, "prefill_peak_share_bf16": flops / prefill_s / PEAK_BF16_FLOPS,
+            "decode_s": decode_s, "decode_tokens_per_s": B * DECODE_NEW / decode_s,
+            "step_ms_p50": p50, "step_ms_p99": p99, "step_ms_mean": float(np.mean(ms)),
+            "rerun_step_ms_p50": float(np.percentile(ms2, 50)), "rerun_prefill_s": prefill2_s,
+            "step_wall_s_profiled": busy[0], "step_device_s_profiled": busy[1], "step_busy_share": busy[1] / busy[0],
+            "step_top_kernels": busy[2],
+            "step_bytes": param_bytes + state_bytes, "step_bound_ms": bound_ms, "step_p50_over_bound": p50 / bound_ms,
+            "peak_device_gb": peak / 1e9, "held_before_gb": held / 1e9, "rerun_bit_equal": True,
+            "continuation_head": toks[:2, :8].tolist()}, toks
+
+
+def decode_vs_forward(device, model, cfg, seed: int, *, bf16_bounds: bool) -> dict:
+    """Full depth: one decode step after a prefill of all but the last of
+    ``DECODE_BF16[1]`` tokens, against the full forward's last position,
+    ‖Δ‖/‖logits‖ a sequence, in the model's bf16 and in fp32 on the same
+    weights widened (``lm.cast``). Held: the fp32 decode to the fp32
+    forward within ``DECODE_FP32_REL``; the bf16 decode no further from
+    the fp32 forward than ``DECODE_BF16_EXCESS`` times the bf16 forward
+    is (median and max; max ≤ ``FWD_BF16_REL_MAX``); with ``bf16_bounds``
+    also the bf16 decode to the bf16 forward within ``FWD_BF16_REL_*``.
+    Argmax agreement reported."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import lm, steps
+
+    B, n = DECODE_BF16
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, n)).astype(np.int32)
+
+    def step_and_forward(m, c):
+        _, stacked = steps.make_prefill_step(chunked(c, n - 1))(m, {"tokens": toks[:, :-1]})
+        cache = lm.load_cache_from_prefill(c, lm.init_cache(c, B, n, filled=n - 1, device=device), stacked, n - 1)
+        del stacked
+        logits, _ = lm.decode_step(m, c, cache, toks[:, -1:])
+        return logits[:, 0], last_logits(m, chunked(c, n), toks, n - 1)[:, 0]
+
+    d16, f16 = step_and_forward(model, cfg)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    m32 = lm.cast(model, cfg32)
+    d32, f32 = step_and_forward(m32, cfg32)
+    del m32
+    torch.cuda.empty_cache()
+    rel, rel32 = seq_rel(d16, f16), seq_rel(d32, f32)
+    rel_d16, rel_f16 = seq_rel(d16, f32), seq_rel(f16, f32)
+    med, mx = float(rel.median()), float(rel.max())
+    out = {"batch": B, "prompt": n - 1, "forward": n, "chunks": [chunked(cfg, n - 1).ssm_chunk, chunked(cfg, n).ssm_chunk],
+           "rel_median": med, "rel_max": mx, "tol": (FWD_BF16_REL_MEDIAN, FWD_BF16_REL_MAX), "bf16_bounds": bf16_bounds,
+           "fp32_decode_vs_forward_max": float(rel32.max()), "fp32_tol": DECODE_FP32_REL,
+           "bf16_decode_vs_fp32_forward": [float(rel_d16.median()), float(rel_d16.max())],
+           "bf16_forward_vs_fp32_forward": [float(rel_f16.median()), float(rel_f16.max())],
+           "excess_tol": DECODE_BF16_EXCESS,
+           "argmax_agreement": float((d16.argmax(-1) == f16.argmax(-1)).float().mean()),
+           "argmax_agreement_fp32": float((d32.argmax(-1) == f32.argmax(-1)).float().mean())}
+    if not rel32.max() <= DECODE_FP32_REL:
+        raise AssertionError(f"{cfg.name}: fp32 decode vs forward at full depth {float(rel32.max())}")
+    if not (rel_d16.median() <= DECODE_BF16_EXCESS * rel_f16.median()
+            and rel_d16.max() <= min(DECODE_BF16_EXCESS * rel_f16.max(), FWD_BF16_REL_MAX)):
+        raise AssertionError(f"{cfg.name}: bf16 decode vs the fp32 forward {out['bf16_decode_vs_fp32_forward']}, "
+                             f"the bf16 forward's {out['bf16_forward_vs_fp32_forward']}")
+    if bf16_bounds and not (med <= FWD_BF16_REL_MEDIAN and mx <= FWD_BF16_REL_MAX):
+        raise AssertionError(f"{cfg.name}: bf16 decode vs forward median {med}, max {mx}")
+    return out
+
+
+def map_lookup(device, model, cfg, docs, doc_classes, prompts, prompt_classes, continuations, work) -> dict:
+    """``examples/serve_lm.py --map-lookup`` on the card: the corpus
+    embedded into a store by the same model, a small map fitted on it and
+    frozen, then each prompt's tail + continuation embedded and looked up
+    (``FrozenMap.neighbors(·, k=3)``). Launch counts: the fit (K1-K3) and
+    the lookup, which must be one batch's K2 and K3; then every kernel
+    against its plain version on this map's data (``check_path_kernels``,
+    K4/K5 at the continuations' placements)."""
+    import torch
+
+    from repro_torch.configs import NomadConfig
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.kernels import registry
+    from repro_torch.pipeline import embed_to_store, make_embed_fn
+    from repro_torch.serve import FrozenMap, MapServer
+
+    t0 = time.perf_counter()
+    store = embed_to_store(model, cfg, docs, os.path.join(work, "corpus"), doc_batch=64)
+    embed_s = time.perf_counter() - t0
+    ncfg = NomadConfig(n_points=store.shape[0], dim=store.shape[1], **DECODE_MAP)
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit = NomadProjection(ncfg, device=device).fit(store)
+    fit_s = time.perf_counter() - t0
+    fz = FrozenMap.from_fit(fit, ncfg, device=device)
+    fit_launches = registry.launch_counts()
+    if not all(fit_launches[n] for n in FIT_KERNELS):
+        raise AssertionError(f"the lookup's map fit launched {fit_launches}")
+    window = np.concatenate([prompts[:, -(DECODE_WINDOW - continuations.shape[1]) :], continuations], axis=1)
+    vecs = make_embed_fn(cfg)(model, window.astype(np.int32)).cpu().numpy()
+    before = registry.launch_counts()
+    t0 = time.perf_counter()
+    ids, dists = fz.neighbors(vecs, k=3)
+    lookup_s = time.perf_counter() - t0
+    after = registry.launch_counts()
+    lookup = {n: after[n] - before[n] for n in after}
+    want = {n: 0 for n in after}
+    want.update(kmeans_assign=1, pairwise=-(-len(vecs) // ncfg.serve_knn_block))
+    if lookup != want:
+        raise AssertionError(f"the lookup launched {lookup}, want one batch's {want}")
+    if not (ids.shape == (len(vecs), 3) and (ids >= 0).all() and np.isfinite(dists).all()):
+        raise AssertionError(f"lookup ids {ids.tolist()}, distances {dists.tolist()}")
+    same_class = float((doc_classes[ids] == prompt_classes[:, None]).mean())
+    placed = MapServer(fz).transform(vecs, seed=7).embedding
+    kernels = check_path_kernels(device, fit, fz, torch.from_numpy(store.materialize()).to(device),
+                                 torch.from_numpy(vecs).to(device), placed, random=False)
+    return {"docs": docs.shape, "embed_s": embed_s, "fit_s": fit_s, "map": DECODE_MAP, "window": window.shape,
+            "fit_launches": fit_launches, "lookup_launches": lookup, "lookup_s": lookup_s,
+            "ids_head": ids[:4].tolist(), "dists_head": dists[:4].tolist(), "neighbour_same_class": same_class,
+            "kernels": kernels, "launches": after}
+
+
+def mamba_arch():
+    """Mamba-2 2.7B at its published widths, the vocabulary unpadded."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS[DECODE_MAMBA], head_pad_to=1, vocab_pad_to=1)
+    want = dict(n_layers=64, d_model=2560, ssm_state=128, ssm_head_dim=64, vocab_size=50_280,
+                param_dtype="bfloat16", compute_dtype="bfloat16", ssm_chunk=256)
+    got = {k: getattr(cfg, k) for k in want}
+    if got != want:
+        raise AssertionError(f"{DECODE_MAMBA} is not at its published widths: {got}")
+    return cfg
+
+
+def decode_path(device) -> dict:
+    """The LM's serving path on the card: fp32 parity at 2 layers
+    (Phi-4-mini, Mamba-2, Mixtral with its ring), then Phi-4-mini and
+    Mamba-2 at full depth in bf16 serving ``DECODE_BATCH`` prompts of
+    ``DECODE_PROMPT`` tokens for ``DECODE_NEW`` greedy steps, a bf16 decode
+    against the full forward, and the map lookup of the continuations.
+    Launch counts are read around the lookup's map fit and the lookup."""
+    import shutil
+
+    import torch
+
+    from repro_torch.data.synthetic import class_token_corpus
+    from repro_torch.models import lm
+
+    work = os.path.join(OUT_DIR, "decode")
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"reduced": DECODE_REDUCED, "parity": []}
+    try:
+        for name in DECODE_PARITY:
+            row = decode_parity(device, name)
+            out["parity"].append(row)
+            print(json.dumps({"decode_parity": row}), flush=True)
+
+        # Phi-4-mini at full depth: the pipeline phase's weights, drawn from its seed
+        acfg = pipeline_arch()
+        model = lm.init_params(acfg, generator=torch.Generator(device=device).manual_seed(0))
+        n_docs, doc_len = DECODE_CORPUS
+        corpus, classes = class_token_corpus(DECODE_BATCH + n_docs, DECODE_PROMPT, acfg.vocab_size,
+                                             n_classes=PIPE_CLASSES, seed=3)
+        prompts = corpus[:DECODE_BATCH]
+        kv_bytes = 2 * acfg.n_layers * DECODE_BATCH * (DECODE_PROMPT + DECODE_NEW // 2) * acfg.n_kv_heads * \
+            acfg.head_dim * 2  # k and v, bf16, the valid positions at the median step
+        phi, continuations = serve_lm(device, model, acfg, prompts, dense_matmul_flops(acfg, DECODE_PROMPT), kv_bytes)
+        print(json.dumps({"decode_serve": phi}), flush=True)
+        phi["bf16_vs_forward"] = decode_vs_forward(device, model, acfg, seed=5, bf16_bounds=True)
+        print(json.dumps({"decode_bf16_vs_forward": phi["bf16_vs_forward"]}), flush=True)
+        lookup = map_lookup(device, model, acfg, corpus[DECODE_BATCH:, -doc_len:], classes[DECODE_BATCH:], prompts,
+                            classes[:DECODE_BATCH], continuations, work)
+        out["launches"] = lookup.pop("launches")
+        out["map_lookup"] = lookup
+        print(json.dumps({"decode_map_lookup": lookup}, default=str), flush=True)
+        out["phi4_mini"] = phi
+        del model
+        torch.cuda.empty_cache()
+
+        # Mamba-2 at full depth
+        mcfg = mamba_arch()
+        model = lm.init_params(mcfg, generator=torch.Generator(device=device).manual_seed(0))
+        m_prompts, _ = class_token_corpus(DECODE_BATCH, DECODE_PROMPT, mcfg.vocab_size, n_classes=PIPE_CLASSES, seed=3)
+        state_bytes = 2 * mcfg.n_layers * DECODE_BATCH * 4 * (  # read and written, float32
+            mcfg.ssm_heads * mcfg.ssm_head_dim * mcfg.ssm_state + (mcfg.ssm_conv - 1) * (mcfg.d_inner + 2 * mcfg.ssm_state))
+        mamba, _ = serve_lm(device, model, mcfg, m_prompts, ssm_matmul_flops(mcfg, DECODE_PROMPT), state_bytes)
+        print(json.dumps({"decode_serve": mamba}), flush=True)
+        mamba["bf16_vs_forward"] = decode_vs_forward(device, model, mcfg, seed=6, bf16_bounds=False)
+        print(json.dumps({"decode_bf16_vs_forward": mamba["bf16_vs_forward"]}), flush=True)
+        out["mamba2"] = mamba
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the stream path (fit and serve from an on-disk store)
 # ---------------------------------------------------------------------------
 
 STREAM_CHUNK = 65_536  # cfg.chunk_rows: 16 chunks at N = 1M, the last 16,960 rows
@@ -2597,6 +3143,10 @@ def main() -> int:
     pipeline["phase_s"] = time.time() - t0
     print(json.dumps({"pipeline_path": {k: v for k, v in pipeline.items() if k in ("embed", "map", "serve", "phase_s")}},
                      default=str), flush=True)
+    t0 = time.time()
+    decode = decode_path(device)
+    decode["phase_s"] = time.time() - t0
+    print(json.dumps({"decode_path": {"phase_s": decode["phase_s"], "launches": decode["launches"]}}), flush=True)
     stream = stream_path(device, x)
     del x
     print(json.dumps({"stream_path": stream}), flush=True)
@@ -2618,7 +3168,8 @@ def main() -> int:
             "launches": fit_n if name in FIT_KERNELS else serve_n,
             "launches_by_path": {"fit": fit_n, "serve": serve_n, "partial": partial["launches"][name],
                                  "stream": stream["stream"]["launches"][name],
-                                 "service": service["launches"][name], "pipeline": pipeline["launches"][name]},
+                                 "service": service["launches"][name], "pipeline": pipeline["launches"][name],
+                                 "decode": decode["launches"][name]},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
@@ -2640,7 +3191,7 @@ def main() -> int:
              for label, where, port in TPU_KERNELS]
     record = {"card": card, "build_s": build_s, "checks": checks, "timing": timing,
               "main_path": main_res, "small_quality": quality, "serve_path": serve, "partial_path": partial,
-              "service_path": service, "pipeline_path": pipeline, "stream_path": stream,
+              "service_path": service, "pipeline_path": pipeline, "decode_path": decode, "stream_path": stream,
               "checkpoint_roundtrip": ckpt, "partial_small": small_partial,
               "tpu_kernels": table, "kernels": kernels}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

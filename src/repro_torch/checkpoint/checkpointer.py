@@ -7,18 +7,24 @@ other's.
   and the caller's metadata: epoch, config, method, strategy, losses);
 * a write goes to ``step_<n>.tmp/`` and is committed by one atomic
   ``rename``, so a crash mid-write never corrupts the latest checkpoint;
-* the port writes one shard (it fits on one device); restore
-  concatenates the row blocks of row-sharded leaves, whatever shard count
-  wrote them, so a multi-shard JAX checkpoint loads too;
+* saves can run on one background thread (``async_save=True``): ``save``
+  takes the host copy of every leaf on the calling thread, so the caller
+  may update its tensors in place as soon as it returns, and the next
+  save (or :meth:`Checkpointer.wait`) joins the write in flight first;
+* ``n_shards > 1`` splits each of ``sharded_keys`` into that many row
+  blocks, one a shard file; restore concatenates the row blocks of
+  row-sharded leaves whatever shard count wrote them, so a multi-shard
+  JAX checkpoint loads too and the JAX package reads the port's;
 * ``keep`` bounds the checkpoints retained (the oldest pruned after each
   commit).
 
-The port's fit writes synchronously from one process: θ is
-(K·C, out_dim) floats, a few MB at the paper's scale.
+``primary`` and ``n_shards`` keep the reference's single-process meaning;
+the multi-process writer waits for multi-GPU.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import json
 import os
 import shutil
@@ -63,16 +69,62 @@ def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:09d}")
 
 
+def _host_copy(v) -> np.ndarray:
+    """A numpy copy of a leaf that no later in-place update of the caller's
+    array or tensor reaches (a CPU tensor's ``.numpy()`` shares its
+    memory)."""
+    if hasattr(v, "detach"):  # a torch.Tensor, on any device
+        v = v.detach().cpu().numpy()
+    return np.array(v, copy=True)
+
+
 class Checkpointer:
-    def __init__(self, directory: str, *, keep: int = 3):
+    def __init__(
+        self,
+        directory: str,
+        *,
+        n_shards: int = 1,
+        keep: int = 3,
+        async_save: bool = False,
+        primary: bool = True,
+    ):
+        """``primary=False`` turns ``save`` into a no-op: only the primary
+        process of a multi-process run writes, and every process restores
+        from the shared directory."""
         self.dir = directory
+        self.n_shards = n_shards
         self.keep = keep
+        self.primary = primary
+        self._pool = cf.ThreadPoolExecutor(max_workers=1) if async_save else None
+        self._pending: Optional[cf.Future] = None
         os.makedirs(directory, exist_ok=True)
 
+    # -- save -----------------------------------------------------------------
+
     def save(self, step: int, tree: dict, *, sharded_keys=(), metadata: Optional[dict] = None):
-        """``sharded_keys``: names (flat paths) whose leading axis a reader
-        splits over devices; the manifest records them."""
-        arrays = {k: np.asarray(v) for k, v in _flatten(tree)}
+        """``sharded_keys``: names (flat paths) whose leading axis is split
+        into ``n_shards`` row blocks, one block a shard file. The leaves
+        may be numpy arrays or tensors on any device; their host copies
+        are taken before this returns."""
+        if not self.primary:
+            return
+        self.wait()
+        arrays = {k: _host_copy(v) for k, v in _flatten(tree)}
+        for k in sharded_keys:
+            if arrays[k].shape[0] % self.n_shards:
+                raise ValueError(f"{k}: {arrays[k].shape[0]} rows do not split into {self.n_shards} shards")
+        if self._pool is None:
+            self._write(step, arrays, tuple(sharded_keys), metadata or {})
+        else:
+            self._pending = self._pool.submit(self._write, step, arrays, tuple(sharded_keys), metadata or {})
+
+    def wait(self):
+        """Join the write in flight, if any (re-raising its error)."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
+
+    def _write(self, step: int, arrays: dict, sharded_keys, metadata: dict):
         tmp = _step_dir(self.dir, step) + ".tmp"
         final = _step_dir(self.dir, step)
         if os.path.exists(tmp):
@@ -80,19 +132,32 @@ class Checkpointer:
         os.makedirs(tmp)
         manifest = {
             "step": step,
-            "n_shards": 1,
+            "n_shards": self.n_shards,
             "sharded": list(sharded_keys),
-            "metadata": metadata or {},
+            "metadata": metadata,
             "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)} for k, v in arrays.items()},
         }
-        np.savez(os.path.join(tmp, "shard_00000.npz"), **arrays)
+        for s in range(self.n_shards):
+            payload = {}
+            for k, v in arrays.items():
+                if k in sharded_keys:
+                    blk = v.shape[0] // self.n_shards
+                    payload[k] = v[s * blk : (s + 1) * blk]
+                elif s == 0:  # replicated leaves live in shard 0 only
+                    payload[k] = v
+            np.savez(os.path.join(tmp, f"shard_{s:05d}.npz"), **payload)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1)
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)  # the atomic commit point
+        self._prune()
+
+    def _prune(self):
         for old in sorted(_steps(self.dir))[: -self.keep]:
             shutil.rmtree(_step_dir(self.dir, old), ignore_errors=True)
+
+    # -- restore ----------------------------------------------------------------
 
     def restore(self, skeleton: dict, step: Optional[int] = None):
         """Returns (tree, metadata) of one checkpoint (latest by default).

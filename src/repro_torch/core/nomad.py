@@ -438,40 +438,46 @@ class NomadProjection:
         stage_s["init"] = time.time() - t_init
         stage_rss["init"] = rss_mb()
 
-        ckpt = Checkpointer(ckdir) if ckdir else None
+        # the writer thread commits epoch e's θ while epoch e + 1 runs; save
+        # takes θ's host copy first, so the in-place epoch cannot reach it
+        ckpt = Checkpointer(ckdir, keep=3, async_save=True) if ckdir else None
         every = max(1, cfg.checkpoint_every_epochs)
         t_epochs = time.time()
         lr0 = cfg.resolved_lr0()
         losses_, epoch_times, checkpoint_epochs = [], [], []
-        for e in range(start_epoch, cfg.n_epochs):
-            te = time.time()
-            f0 = 1.0 - e / cfg.n_epochs
-            f1 = 1.0 - (e + 1) / cfg.n_epochs
-            if events is not None:
-                events.on_epoch_start(EpochStartEvent(e, cfg.n_epochs, lr0 * f0, lr0 * f1, strategy.name))
-            theta, mloss = strategy.run_epoch(theta, e, lr0 * f0, lr0 * f1)
-            losses_.append(mloss)
-            epoch_times.append(time.time() - te)
-            if ckpt is not None and ((e + 1) % every == 0 or e == cfg.n_epochs - 1):
-                ckpt.save(
-                    e,
-                    {"theta": strategy.fetch(theta)},
-                    sharded_keys=("theta",),
-                    metadata={
-                        "epoch": e,
-                        "config": dataclasses.asdict(cfg),
-                        "method": self.method,
-                        "strategy": "local",
-                        "losses": list(losses_),
-                    },
-                )
-                checkpoint_epochs.append(e)
+        try:
+            for e in range(start_epoch, cfg.n_epochs):
+                te = time.time()
+                f0 = 1.0 - e / cfg.n_epochs
+                f1 = 1.0 - (e + 1) / cfg.n_epochs
                 if events is not None:
-                    events.on_checkpoint(CheckpointEvent(e, e, ckdir, strategy.n_shards))
-            if events is not None:
-                events.on_means_refresh(MeansRefreshEvent(e, strategy.refreshes_per_epoch(), strategy.name))
-                emb_e = index.unpermute(strategy.fetch(theta)) if events.wants_embedding else None
-                events.on_epoch_end(EpochEndEvent(e, cfg.n_epochs, mloss, epoch_times[-1], strategy.name, emb_e))
+                    events.on_epoch_start(EpochStartEvent(e, cfg.n_epochs, lr0 * f0, lr0 * f1, strategy.name))
+                theta, mloss = strategy.run_epoch(theta, e, lr0 * f0, lr0 * f1)
+                losses_.append(mloss)
+                epoch_times.append(time.time() - te)
+                if ckpt is not None and ((e + 1) % every == 0 or e == cfg.n_epochs - 1):
+                    ckpt.save(
+                        e,
+                        {"theta": strategy.fetch(theta)},
+                        sharded_keys=("theta",),
+                        metadata={
+                            "epoch": e,
+                            "config": dataclasses.asdict(cfg),
+                            "method": self.method,
+                            "strategy": "local",
+                            "losses": list(losses_),
+                        },
+                    )
+                    checkpoint_epochs.append(e)
+                    if events is not None:
+                        events.on_checkpoint(CheckpointEvent(e, e, ckdir, strategy.n_shards))
+                if events is not None:
+                    events.on_means_refresh(MeansRefreshEvent(e, strategy.refreshes_per_epoch(), strategy.name))
+                    emb_e = index.unpermute(strategy.fetch(theta)) if events.wants_embedding else None
+                    events.on_epoch_end(EpochEndEvent(e, cfg.n_epochs, mloss, epoch_times[-1], strategy.name, emb_e))
+        finally:
+            if ckpt is not None:
+                ckpt.wait()  # commit the save in flight, even on interruption
         stage_s["epochs"] = time.time() - t_epochs
         stage_rss["epochs"] = rss_mb()
 
@@ -645,7 +651,8 @@ class NomadProjection:
         if lineage is not None:
             t_version = time.time()
             step = max(refine_epochs - 1, 0)
-            Checkpointer(version_dir, keep=2).save(
+            ckpt = Checkpointer(version_dir, keep=2, async_save=False)
+            ckpt.save(
                 step,
                 {"theta": theta_new},
                 metadata={
@@ -657,6 +664,7 @@ class NomadProjection:
                     "parent_version": parent_name,
                 },
             )
+            ckpt.wait()
             save_index(upd.index, index_cache_path(version_dir))
             lineage.record(name=version_name, dirname=version_name, parent=parent_name,
                            fingerprint=upd.index.fingerprint, n_points=upd.index.n_points,

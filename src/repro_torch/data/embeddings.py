@@ -22,7 +22,7 @@ def hidden_states(params: lm.LM, cfg: ArchConfig, tokens=None, embeds=None, patc
     compute dtype, on the model's device."""
     with torch.inference_mode():
         x = lm.embed_in(params, cfg, tokens=tokens, embeds=embeds, patches=patches)
-        x, _ = lm.body(params, cfg, x)
+        x, _, _ = lm.body(params, cfg, x)
         return rms_norm(x, params.final_ln)
 
 

@@ -1,7 +1,7 @@
-"""The model zoo's sequence forward, the embed pipeline's embedder (the port
-of the JAX package's ``repro.models``; the training steps, caches and
-decode wait)."""
+"""The model zoo (the port of the JAX package's ``repro.models``): the
+sequence forward the embed pipeline runs, and the serving path, prefill
+into a KV/SSM cache then ``decode_step``. The training steps wait."""
 
-from repro_torch.models import attention, convert, layers, lm, moe, ssm
+from repro_torch.models import attention, convert, layers, lm, moe, ssm, steps
 
-__all__ = ["attention", "convert", "layers", "lm", "moe", "ssm"]
+__all__ = ["attention", "convert", "layers", "lm", "moe", "ssm", "steps"]

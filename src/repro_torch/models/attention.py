@@ -1,5 +1,6 @@
 """Attention: GQA with RoPE, optional qk-norm and sliding windows (port of
-the JAX package's ``models/attention.py``, the sequence forward).
+the JAX package's ``models/attention.py``: the sequence forward and the
+one-device decode).
 
 The weights keep the reference's head-major layout, ``wq (D, H, hd)``,
 ``wk/wv (D, KV, hd)``, ``wo (H, hd, D)``, so carrying the JAX package's
@@ -7,14 +8,19 @@ weights across is a copy. A projection runs as one matrix product over the
 flattened ``(H, hd)`` axis, which is the reference's einsum. GQA repeats
 k/v to H heads at use.
 
-Two execution paths, numerically equivalent (tested against each other and
-against the JAX functions):
+Three execution paths, numerically equivalent (tested against each other
+and against the JAX functions):
 
 * ``attend_full``     — materialises the (Sq, Sk) score matrix; the oracle.
 * ``attend_chunked``  — online softmax over (q-chunk, kv-chunk) tiles, two
   Python loops in place of the reference's double ``lax.scan``; live
   memory O(Sq·chunk). The reference's ``attend_flash`` runs this same
   forward under a custom VJP for training; its backward is not ported.
+* ``attend_decode``   — one query against a cache (B, Sc, KV, hd), scored
+  per kv group (q as (B, KV, g, hd)) so the cache is never repeated to H
+  heads; the same products and float32 sums as the reference's
+  ``repeat_kv`` form. The reference's length-sharded
+  ``attend_decode_sharded`` waits for multi-GPU.
 
 Both compute as the reference writes them: scores of bf16 operands
 accumulated in float32 (the reference's ``preferred_element_type``), the
@@ -48,6 +54,7 @@ class AttnParams(torch.nn.Module):
         self.k_norm = None if k_norm is None else frozen(k_norm)
 
     def forward(self, x, positions, cfg, *, causal: bool):
+        """``(y, (k, v))``: the output and the block's keys and values."""
         return attention_block(self, x, positions, cfg, causal=causal)
 
 
@@ -179,18 +186,95 @@ def attend_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0, chun
     return torch.cat(outs, dim=1).to(v.dtype)
 
 
-def attention_block(p: AttnParams, x, positions, cfg, *, causal: bool) -> torch.Tensor:
-    """Projection → attention → output projection (sequence forward). Past
-    ``cfg.attn_chunk`` tokens it takes the chunked path, whose forward is
-    the reference's for both ``attn_impl`` values."""
+def _output(p: AttnParams, out: torch.Tensor, cfg) -> torch.Tensor:
+    """Pad heads masked, then the output projection ``einsum("bqhe,hed->bqd")``."""
+    hm = head_mask(cfg, out.device)
+    if hm is not None:
+        out = out * hm[None, None, :, None].to(out.dtype)
+    B, S, Hp, hd = out.shape
+    return out.reshape(B, S, Hp * hd) @ p.wo.reshape(Hp * hd, -1)
+
+
+def attention_block(p: AttnParams, x, positions, cfg, *, causal: bool):
+    """Projection → attention → output projection (sequence forward):
+    ``(y, (k, v))``, the keys and values (B, S, KV, hd) for a prefill's
+    cache. Past ``cfg.attn_chunk`` tokens it takes the chunked path, whose
+    forward is the reference's for both ``attn_impl`` values."""
     q, k, v = qkv_project(p, x, positions, cfg)
     window = cfg.sliding_window
     if x.shape[1] > cfg.attn_chunk:
         out = attend_chunked(q, k, v, positions, positions, causal=causal, window=window, chunk=cfg.attn_chunk)
     else:
         out = attend_full(q, k, v, positions, positions, causal=causal, window=window)
-    hm = head_mask(cfg, x.device)
-    if hm is not None:
-        out = out * hm[None, None, :, None].to(out.dtype)
-    B, S, Hp, hd = out.shape
-    return out.reshape(B, S, Hp * hd) @ p.wo.reshape(Hp * hd, -1)
+    return _output(p, out, cfg), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (one query against the cache, one device)
+# ---------------------------------------------------------------------------
+
+
+def _decode_local(q, k_cache, v_cache, q_pos, k_pos, valid, window: int):
+    """Decode attention → unnormalised (o (B, 1, H, hd), m (B, H, 1), l
+    (B, H, 1)). q (B, 1, H, hd); caches (B, Sc, KV, hd); q_pos (B, 1);
+    k_pos and valid (B, Sc). Head h reads kv head h // g (g = H / KV), the
+    head ``repeat_kv`` gives it, and the scores are float32 sums of the
+    widened products, as the reference's ``preferred_element_type``."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    g = H // KV
+    qg = q[:, 0].reshape(B, KV, g, hd)
+    # one strided copy widens the cache into (B, KV, Sc, hd) rows
+    kt = k_cache.transpose(1, 2).to(torch.float32, memory_format=torch.contiguous_format)
+    s = qg.float() @ kt.transpose(-1, -2)  # (B, KV, g, Sc)
+    s = s * (1.0 / np.sqrt(hd))
+    d = q_pos[:, :, None] - k_pos[:, None, :]  # (B, 1, Sc)
+    ok = (d >= 0) & valid[:, None, :]
+    if window > 0:
+        ok &= d < window
+    s = torch.where(ok[:, None], s, torch.full((), NEG_INF, device=s.device))
+    m = s.amax(dim=-1)  # (B, KV, g)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = p.to(v_cache.dtype) @ v_cache.transpose(1, 2)  # (B, KV, g, hd)
+    return o.reshape(B, 1, H, hd), m.reshape(B, H, 1), l.reshape(B, H, 1)
+
+
+def attend_decode(q, k_cache, v_cache, q_pos, k_pos, valid, *, window: int = 0):
+    """q: (B, 1, H, hd); caches: (B, Sc, KV, hd); valid: (B, Sc) bool.
+    Visible: ``d = q_pos − k_pos ≥ 0``, a valid slot, and ``d < window``
+    when there is one. Returns float32 (B, 1, H, hd), the division by
+    ``max(l, 1e-37)`` in float32 as the reference's."""
+    o, m, l = _decode_local(q, k_cache, v_cache, q_pos, k_pos, valid, window)
+    return o / torch.clamp_min(l, 1e-37).transpose(1, 2)[..., None]
+
+
+def dispatch_attend_decode(q, k_cache, v_cache, q_pos, k_pos, valid, *, window: int = 0):
+    """The reference's dispatch on one device: :func:`attend_decode` (the
+    length-sharded decode waits for multi-GPU)."""
+    return attend_decode(q, k_cache, v_cache, q_pos, k_pos, valid, window=window)
+
+
+def attention_decode_block(p: AttnParams, x, pos, k_cache, v_cache, k_pos, valid, cfg):
+    """One decode step against caches that do not yet hold this token.
+    x: (B, 1, D); returns (y, (k_new, v_new)).
+
+    The reference's float32 attention output promotes its residual
+    stream to float32 when the compute dtype is bfloat16 (its scan over
+    the layers then refuses the step); the port casts the output back to
+    the compute dtype before ``wo``, as the sequence forward's output is."""
+    q, k_new, v_new = qkv_project(p, x, pos, cfg)
+    out = dispatch_attend_decode(q, k_cache, v_cache, pos, k_pos, valid, window=cfg.sliding_window)
+    return _output(p, out.to(x.dtype), cfg), (k_new, v_new)
+
+
+def attention_decode_into(p: AttnParams, x, pos, k_cache, v_cache, slot: int, k_pos, valid, cfg):
+    """:func:`attention_decode_block` for ``decode_step``: the new key and
+    value are written into ``slot`` of the caches (B, Sc, KV, hd) in
+    place first, so the token attends to itself, as the reference's
+    decode step does with its updated caches. Returns y (B, 1, D)."""
+    q, k_new, v_new = qkv_project(p, x, pos, cfg)
+    k_cache[:, slot] = k_new[:, 0]
+    v_cache[:, slot] = v_new[:, 0]
+    out = dispatch_attend_decode(q, k_cache, v_cache, pos, k_pos, valid, window=cfg.sliding_window)
+    return _output(p, out.to(x.dtype), cfg)

@@ -11,6 +11,8 @@ package's weights across with :mod:`repro_torch.models.convert`.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -63,6 +65,16 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_frequencies_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """:func:`rope_frequencies` on ``device``, copied there once: a host
+    copy a call would wait for the card each layer (a blocking copy
+    synchronises the stream). A normal tensor, whatever mode the first
+    caller runs in; no caller writes it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(rope_frequencies(head_dim, theta)).to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotate ``x`` (B, S, ..., head_dim) by position-dependent angles.
 
@@ -70,7 +82,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     between S and head_dim.
     """
     hd = x.shape[-1]
-    freqs = torch.from_numpy(rope_frequencies(hd, theta)).to(x.device)  # (hd/2,)
+    freqs = _rope_frequencies_on(hd, float(theta), x.device)  # (hd/2,)
     ang = positions[..., None].float() * freqs  # (B, S, hd/2)
     ang = ang.reshape(ang.shape[:-1] + (1,) * (x.dim() - ang.dim()) + ang.shape[-1:])
     cos, sin = torch.cos(ang), torch.sin(ang)

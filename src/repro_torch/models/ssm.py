@@ -1,12 +1,13 @@
 """Mamba-2 (SSD — state-space duality) block (port of the JAX package's
-``models/ssm.py``, the sequence forward; the O(1) decode step waits).
+``models/ssm.py``: the sequence forward and the O(1) decode step).
 
 The sequence path uses the chunked SSD algorithm [arXiv:2405.21060]: within
 a chunk the recurrence is a (Q×Q) masked, decay-weighted "attention"
 (batched matmuls); across chunks a loop carries the (H, P, N) state. All
 of it runs in float32, with the reference's ``clip(−60, 0)`` on each
 exponent. Each of z/x/B/C/Δ has its own projection and the depthwise conv
-runs per component, as in the reference.
+runs per component, as in the reference. Decode is the recurrence
+``h ← exp(Δ·A)·h + Δ·x⊗B``, ``y = h·C + D·x``, on a float32 state.
 
 Layout: x_heads (B, S, H, P), B/C (B, S, N) (single group), state (B, H, P, N).
 """
@@ -79,6 +80,18 @@ def init_ssm(gen: torch.Generator, cfg) -> SSMParams:
         norm_w=const(np.ones(di), dt_),
         w_out=normal(gen, (di, D), 1.0 / np.sqrt(di), dt_),
     )
+
+
+def init_ssm_state(cfg, batch: int, *, device=None) -> SSMState:
+    """A zero decode state, float32 (the conv tails too)."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    w = cfg.ssm_conv
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return SSMState(h=zeros(batch, H, P, N), tail_x=zeros(batch, w - 1, di), tail_b=zeros(batch, w - 1, N),
+                    tail_c=zeros(batch, w - 1, N))
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, tail: Optional[torch.Tensor]):
@@ -162,3 +175,23 @@ def ssm_block(p: SSMParams, x: torch.Tensor, cfg, state: Optional[SSMState] = No
     out = y @ p.w_out
     new_state = SSMState(h=h_final, tail_x=tx.float(), tail_b=tb.float(), tail_c=tc.float())
     return out, new_state
+
+
+def ssm_decode_block(p: SSMParams, x: torch.Tensor, cfg, state: SSMState):
+    """Single-token step. x: (B, 1, D) → (y (B,1,D), new state); the
+    state passed in is left as it is."""
+    B = x.shape[0]
+    di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xs, Bm, Cm, dt, (tx, tb, tc) = _project(p, x, cfg, state)
+    xs = xs[:, 0].reshape(B, H, P).float()
+    B_vec = Bm[:, 0].float()
+    C_vec = Cm[:, 0].float()
+    dt0 = dt[:, 0, :]  # (B, H)
+    A = -torch.exp(p.A_log)
+    decay = torch.exp(dt0 * A)  # (B, H)
+    h = state.h * decay[:, :, None, None] + (xs * dt0[..., None])[..., None] * B_vec[:, None, None, :]
+    y = torch.einsum("bhpn,bn->bhp", h, C_vec) + p.D[None, :, None] * xs
+    y = y.reshape(B, 1, di).to(x.dtype)
+    y = gated_rms_norm(y, z, p.norm_w)
+    new_state = SSMState(h=h, tail_x=tx.float(), tail_b=tb.float(), tail_c=tc.float())
+    return y @ p.w_out, new_state

@@ -1,6 +1,9 @@
-"""The port's checkpoints on the CPU: the JAX package's format both ways,
-serving a checkpoint directory either package wrote, and the port's own
-bit-equality contracts (from_checkpoint ≡ fitted, resume ≡ uninterrupted)."""
+"""The port's checkpoints on the CPU: the JAX package's format both ways
+(one shard and row-sharded), serving a checkpoint directory either package
+wrote, the writer's reference arguments (``n_shards``, ``keep``,
+``async_save``, ``primary``), and the port's own bit-equality contracts
+(from_checkpoint ≡ fitted, resume ≡ uninterrupted, async ≡ sync; the fit
+saves asynchronously)."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import dataclasses
 import json
 import os
 import shutil
+import time
 import warnings
 
 import numpy as np
@@ -25,6 +29,18 @@ from repro_torch.core.nomad import NomadProjection  # noqa: E402
 from repro_torch.core.strategy import LocalStrategy  # noqa: E402
 from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
 from repro_torch.serve import FrozenMap  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's work here runs at small shapes: one intra-op thread runs
+    it faster than a pool, and keeps the module from contending with the
+    other test workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N, DIM = 1500, 16
 CFG = NomadConfig(
@@ -189,3 +205,163 @@ def test_config_from_stored_drops_jax_switches():
     assert NomadConfig.from_stored(stored, n_epochs=9).n_epochs == 9
     with pytest.raises(TypeError):
         NomadConfig.from_stored({**stored, "no_such_field": 1})
+
+
+# ---------------------------------------------------------------------------
+# The writer: the reference's arguments, the async thread, shards
+# ---------------------------------------------------------------------------
+
+
+def _read_all(ckdir: str) -> dict:
+    """Every step directory's manifest and every array of every shard."""
+    out = {}
+    for name in sorted(os.listdir(ckdir)):
+        if not name.startswith("step_"):
+            continue
+        with open(os.path.join(ckdir, name, "manifest.json")) as f:
+            files = {"manifest": json.load(f)}
+        for shard in sorted(os.listdir(os.path.join(ckdir, name))):
+            if shard.endswith(".npz"):
+                with np.load(os.path.join(ckdir, name, shard)) as z:
+                    files[shard] = {k: z[k] for k in z.files}
+        out[name] = files
+    return out
+
+
+def _assert_same_checkpoints(a: dict, b: dict):
+    assert a.keys() == b.keys() and a
+    for step in a:
+        assert a[step].keys() == b[step].keys()
+        assert a[step]["manifest"] == b[step]["manifest"]
+        for shard in a[step]:
+            if shard != "manifest":
+                assert a[step][shard].keys() == b[step][shard].keys()
+                for k in a[step][shard]:
+                    np.testing.assert_array_equal(a[step][shard][k], b[step][shard][k])
+                    assert a[step][shard][k].dtype == b[step][shard][k].dtype
+
+
+def test_reference_keyword_arguments(tmp_path):
+    """``Checkpointer(directory, *, n_shards, keep, async_save, primary)``
+    as the reference's; the reference's own fit passes all four."""
+    ck = Checkpointer(str(tmp_path), n_shards=1, keep=3, async_save=True, primary=True)
+    ck.save(0, {"theta": np.ones((4, 2), np.float32)})
+    ck.wait()
+    assert latest_step(str(tmp_path)) == 0 and (ck.n_shards, ck.keep, ck.primary) == (1, 3, True)
+
+
+def test_fit_saves_async_equal_to_sync(port_ck, data, tmp_path, monkeypatch):
+    """The fit's writer thread leaves the same checkpoints as a synchronous
+    writer of the same fit: every array bit-equal, the manifests equal."""
+    import repro_torch.checkpoint as ck_mod
+
+    _, full, ckdir = port_ck
+    made = []
+
+    class Sync(ck_mod.Checkpointer):
+        def __init__(self, directory, **kw):
+            made.append(kw)
+            super().__init__(directory, **dict(kw, async_save=False))
+
+    monkeypatch.setattr(ck_mod, "Checkpointer", Sync)
+    x, _ = data
+    sync_dir = str(tmp_path / "sync")
+    res = NomadProjection(CFG.replace(checkpoint_dir=sync_dir), device="cpu").fit(x)
+    assert made == [{"keep": 3, "async_save": True}]  # the fit asks for the async writer
+    np.testing.assert_array_equal(res.embedding, full.embedding)
+    got, want = _read_all(ckdir), _read_all(sync_dir)
+    for files in list(got.values()) + list(want.values()):
+        files["manifest"]["metadata"]["config"].pop("checkpoint_dir")
+    _assert_same_checkpoints(got, want)
+
+
+def test_async_save_takes_its_copy_before_returning(tmp_path):
+    """A tensor (and an array) updated in place right after an async
+    ``save`` returns leave the saved values as they were: the write, held
+    back here behind a blocked task on the writer thread, sees the copy."""
+    import threading
+
+    theta = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    extra = np.arange(3)
+    want_theta, want_extra = theta.clone().numpy(), extra.copy()
+    ck = Checkpointer(str(tmp_path), async_save=True)
+    gate = threading.Event()
+    ck._pool.submit(gate.wait, 30)
+    ck.save(4, {"theta": theta, "extra": extra}, sharded_keys=("theta",), metadata={"losses": [1.0]})
+    theta.add_(100.0)
+    extra += 7
+    assert latest_step(str(tmp_path)) is None  # not committed yet
+    gate.set()
+    ck.wait()
+    tree, meta = Checkpointer(str(tmp_path)).restore({"theta": None, "extra": None})
+    np.testing.assert_array_equal(tree["theta"], want_theta)
+    np.testing.assert_array_equal(tree["extra"], want_extra)
+    assert meta == {"losses": [1.0]}
+
+
+def test_interrupted_fit_commits_the_save_in_flight(data, tmp_path, monkeypatch):
+    """A fit killed while its last save is still being written commits
+    that save before the error propagates (``wait`` in a ``finally``)."""
+    import threading
+
+    x, _ = data
+    ckdir = str(tmp_path / "ck")
+    write = Checkpointer._write
+    started = threading.Event()
+
+    def slow_write(self, step, *a):
+        started.set()
+        time.sleep(0.5)
+        return write(self, step, *a)
+
+    run_epoch = LocalStrategy.run_epoch
+
+    def dies_at_1(self, theta, epoch, lr0, lr1):
+        if epoch == 1:
+            assert started.wait(30)
+            raise RuntimeError("killed at epoch 1")
+        return run_epoch(self, theta, epoch, lr0, lr1)
+
+    monkeypatch.setattr(Checkpointer, "_write", slow_write)
+    monkeypatch.setattr(LocalStrategy, "run_epoch", dies_at_1)
+    with pytest.raises(RuntimeError, match="killed"):
+        NomadProjection(CFG.replace(checkpoint_dir=ckdir), device="cpu").fit(x)
+    assert latest_step(ckdir) == 0
+    assert not [n for n in os.listdir(ckdir) if n.endswith(".tmp")]
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_sharded_checkpoints_read_both_ways(tmp_path, async_save):
+    """``n_shards=2``: each of ``sharded_keys`` split into two row blocks,
+    one a shard file, replicated leaves in shard 0. The JAX package reads
+    what the port wrote, and the port what the JAX package wrote."""
+    rng = np.random.default_rng(3)
+    tree = {"theta": rng.normal(size=(10, 2)).astype(np.float32), "extra": {"a": np.arange(5)}}
+    skel = {"theta": None, "extra": {"a": None}}
+    port_dir, jax_dir = str(tmp_path / "p"), str(tmp_path / "j")
+    ck = Checkpointer(port_dir, n_shards=2, async_save=async_save)
+    ck.save(3, tree, sharded_keys=("theta",), metadata={"epoch": 3})
+    ck.wait()
+    JaxCheckpointer(jax_dir, n_shards=2).save(3, tree, sharded_keys=("theta",), metadata={"epoch": 3})
+    _assert_same_checkpoints(_read_all(port_dir), _read_all(jax_dir))
+    with np.load(os.path.join(port_dir, "step_000000003", "shard_00001.npz")) as z:
+        assert z.files == ["theta"] and z["theta"].shape == (5, 2)
+    for reader in (JaxCheckpointer, Checkpointer):
+        for d in (port_dir, jax_dir):
+            got, meta = reader(d).restore(skel)
+            np.testing.assert_array_equal(got["theta"], tree["theta"])
+            np.testing.assert_array_equal(got["extra"]["a"], tree["extra"]["a"])
+            assert meta == {"epoch": 3}
+    bad = Checkpointer(str(tmp_path / "bad"), n_shards=3, async_save=async_save)
+    with pytest.raises(ValueError, match="shards"):  # raised by save, on the caller's thread
+        bad.save(0, tree, sharded_keys=("theta",))
+    assert os.listdir(str(tmp_path / "bad")) == []
+
+
+def test_non_primary_writes_nothing(tmp_path):
+    """``primary=False``: ``save`` is a no-op (the primary process writes)."""
+    d = str(tmp_path / "ck")
+    ck = Checkpointer(d, primary=False, async_save=True)
+    ck.save(0, {"theta": np.ones((2, 2), np.float32)})
+    ck.wait()
+    assert os.listdir(d) == [] and latest_step(d) is None

@@ -25,6 +25,10 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.service, repro_torch.service.app, repro_torch.pipeline.inverse\n"
         "import repro_torch.optim, repro_torch.pipeline, repro_torch.pipeline.embed, repro_torch.pipeline.run\n"
         "import repro_torch.models, repro_torch.models.convert, repro_torch.data.embeddings, repro_torch.configs\n"
+        "import repro_torch.models.steps\n"
+        "from repro_torch.models.lm import init_cache, load_cache_from_prefill, decode_step, cache_capacity\n"
+        "from repro_torch.models.attention import attend_decode, attention_decode_block\n"
+        "from repro_torch.models.ssm import init_ssm_state, ssm_decode_block\n"
         "from repro_torch.kernels import registry\n"
         "registry.names()  # imports every kernel module\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"

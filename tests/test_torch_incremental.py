@@ -41,6 +41,18 @@ from repro_torch.index.ann import AnnIndex, index_from_arrays  # noqa: E402
 from repro_torch.index.build import capacity_assign_device, chunked_cluster_knn, seeded_generator  # noqa: E402
 from repro_torch.index.incremental import admit_and_patch, chained_fingerprint  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's work here runs at small shapes: one intra-op thread runs
+    it faster than a pool, and keeps the module from contending with the
+    other test workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 CFG = NomadConfig(
     n_points=800, dim=8, n_clusters=8, n_neighbors=5, n_noise=8, n_exact_negatives=4,

@@ -45,6 +45,18 @@ from repro_torch.pipeline.inverse import train_step  # noqa: E402
 from repro_torch.serve import FrozenMap  # noqa: E402
 from repro_torch.service import MapService  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's work here runs at small shapes: one intra-op thread runs
+    it faster than a pool, and keeps the module from contending with the
+    other test workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the JAX package's committed floor for the round-trip R² at this size
 # (tests/test_pipeline.py)
 ROUNDTRIP_R2_FLOOR = 0.15

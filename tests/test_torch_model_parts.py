@@ -105,10 +105,12 @@ def test_attention_block_takes_the_chunked_path_past_attn_chunk():
     x = np.random.default_rng(1).normal(size=(2, 64, cfg.d_model)).astype(np.float32)
     pos = np.broadcast_to(np.arange(64, dtype=np.int32), (2, 64)).copy()
     block = jax.jit(lambda p_, x_, pos_: ref_attn.attention_block(p_, x_, pos_, rcfg, causal=True))
-    want, _ = block(p, jnp.asarray(x), jnp.asarray(pos))
+    want, (want_k, want_v) = block(p, jnp.asarray(x), jnp.asarray(pos))
     ours = _attention(_Leaves(jax.tree.map(np.asarray, p), (), torch.device("cpu"), "float32"))
-    got = attention.attention_block(ours, _t(x), _t(pos), cfg, causal=True)
+    got, (k, v) = attention.attention_block(ours, _t(x), _t(pos), cfg, causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(k.numpy(), np.asarray(want_k), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(v.numpy(), np.asarray(want_v), rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

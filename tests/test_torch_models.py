@@ -93,7 +93,7 @@ def _port(tree, cfg):
     kw = _inputs(cfg)
     h = hidden_states(model, cfg, **kw).float().numpy()
     with torch.inference_mode():
-        logits, aux = lm.forward(model, cfg, **kw)
+        logits, aux, _ = lm.forward(model, cfg, **kw)
     return model, h, logits.numpy(), float(aux)
 
 

@@ -37,6 +37,18 @@ from repro.kernels.nomad_step.ref import nomad_step_ref  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.nomad_step import ops  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's work here runs at small shapes: one intra-op thread runs
+    it faster than a pool, and keeps the module from contending with the
+    other test workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SPEC_SHAPES = [(512, 15, 16, 64, 2), (100, 5, 4, 33, 2), (64, 3, 8, 100, 3), (777, 15, 16, 130, 2)]
 MAIN_SHAPE = (8192, 15, 16, 4096, 2)  # a step of the PubMed fit: batch_size heads against K means
 # a refinement step on a map grown by partial_fit: K' past 4096 gives the

@@ -29,6 +29,17 @@ from repro_torch.metrics import map_stability, neighborhood_preservation  # noqa
 from repro_torch.serve import FrozenMap, MapServer  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's work here runs at small shapes: one intra-op thread runs
+    it faster than a pool, and keeps the module from contending with the
+    other test workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_cfg(n, *, dim=8, clusters=4, ckdir="", epochs=4, refine=2, seed=0, **kw):
     return NomadConfig(
         n_points=n, dim=dim, n_clusters=clusters, n_neighbors=5, n_noise=8, n_exact_negatives=4,

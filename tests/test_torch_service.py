@@ -50,6 +50,18 @@ from repro_torch.service import (  # noqa: E402
 )
 from repro_torch.service.cache import EXACT_FINGERPRINT_ROWS  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's work here runs at small shapes: one intra-op thread runs
+    it faster than a pool, and keeps the module from contending with the
+    other test workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, DIM, MICRO = 600, 8, 32
 

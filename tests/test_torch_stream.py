@@ -44,6 +44,18 @@ from repro_torch.index.build import (  # noqa: E402
 from repro_torch.serve import FrozenMap  # noqa: E402
 from test_torch_fit import SIDE_BY_SIDE_BAND  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's work here runs at small shapes: one intra-op thread runs
+    it faster than a pool, and keeps the module from contending with the
+    other test workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N, DIM = 1500, 16
 CFG = NomadConfig(
     n_points=N, dim=DIM, n_clusters=4, n_neighbors=10, n_noise=16, n_exact_negatives=4,
