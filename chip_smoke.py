@@ -95,7 +95,29 @@ Phases, each fatal on failure:
    and K3 launches. Mamba-2 2.7B (64 layers, bf16) serves the same batch
    with the same numbers. The launch counts of the map fit and the lookup
    are the ``decode`` path's;
-10. a checkpoint round trip at the small fit's size: fit with
+10. the LM's training path (``train_path``, after the decode phase):
+   ``attend_flash``'s output and q/k/v gradients against autograd through
+   ``attend_full`` in fp32 (Phi-4-mini's 24 heads on 8 at S 4,096, and
+   Mixtral's window of 4,096 at S 8,192; ≤ 1e-5 each) with the backward's
+   peak memory of flash below chunked's; the int8 quantiser card ≡ CPU;
+   one fp32 train step (accum 1, SGD) of Phi-4-mini, Mamba-2 and Mixtral
+   at published widths with 2 layers, card against the port's CPU step
+   from one seeded init and one TokenStream batch of 2 × 256 (loss within
+   1e-5, each leaf's gradient and SGD-updated weight within 1e-4, MoE
+   routes equal or near-ties). Then Phi-4-mini at full depth in bf16 with
+   remat "full", flash attention and AdamW's int8 moments trains on
+   TokenStream batches of 8 × 4,096 (4 pre-split microbatches of 2): 2
+   warm-up and 6 timed steps (CUDA events), the loss must fall; step p50
+   and p99, tokens/s, model and hardware TFLOP/s, peak memory, the moments'
+   bytes, and one microbatch's forward and backward profiled, without an
+   update (busy share, ten largest kernels). The
+   trained model embeds class_token_corpus(2,048, 128) into a store that
+   ``pipeline_phi4_mini``'s map config fits (K1-K3 launches, the ``train``
+   path's), and every kernel of the map is held against its plain version
+   on those rows (as the pipeline phase does); two 2-step runs at 2 layers are compared bit for bit
+   (reported, not gated); Mamba-2 at its published widths with 16 of its
+   64 layers takes 3 steps the same way (finite losses);
+11. a checkpoint round trip at the small fit's size: fit with
    ``checkpoint_dir`` (saved by the asynchronous writer),
    ``NomadProjection.from_checkpoint(dir).transform``
    bit-equal to the fitted estimator's, and the same frozen map served on
@@ -108,7 +130,7 @@ Phases, each fatal on failure:
    transform, determinism, the lineage v0 → v1 → v2 (served by
    ``registry.load_lineage``), store ≡ array growth, the kNN patch in
    blocks ≡ one batch, and the old rows' quality against a joint refit;
-11. the stream path: the main path's rows written as a bfloat16 sharded
+12. the stream path: the main path's rows written as a bfloat16 sharded
    store under ``chiprun_out/`` and fitted from disk in 65,536-row chunks
    in a child process (its own peak RSS, stage times, launch counts), its
    map serving 4,096 queries from an ``.npy`` memmap and path bit-equal to
@@ -116,7 +138,7 @@ Phases, each fatal on failure:
    RSS, and here with the same chunks: bit-equal to the store's fit; then
    the randomized PCA (D 4096) on the card against the CPU. The store and
    its spill are deleted at the end;
-12. the kernel table (the contract line), then the card, then the result.
+13. the kernel table (the contract line), then the card, then the result.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the repository's ``src/`` is not beside it. Details of every check
@@ -138,6 +160,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+# set before torch starts CUDA: the train phase's Phi-4-mini step peaks at
+# ~65 GB of an NVIDIA H100 80GB HBM3's 80 (700 W) with (2, 4096, 200,064)
+# float32 logits and their gradient coming and going, and the fixed-size
+# segments left ~15 GB of it reserved but unusable (an out-of-memory stop)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 # NVIDIA H100 SXM data sheet: fp32 on CUDA cores (no tensor cores), TF32 on
 # the tensor cores (dense), HBM3 rate
@@ -1574,13 +1601,16 @@ def drive_clients(svc, schedule, stop=None, after_stop=2):
 
 def device_breakdown(device, fn, top: int = 0):
     """``fn()`` under torch.profiler: (its wall s, the device's kernel time
-    s, the ``top`` kernels by device time as (name, ms, calls))."""
+    s, the ``top`` kernels by device time as (name, ms, calls)). Only the
+    device's activity is recorded: nothing here reads the host's events,
+    and the profiler sorts a call of ~10^5 kernels out in a fraction of
+    the time it takes with them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(device)
@@ -2765,6 +2795,457 @@ def decode_path(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the LM's training path
+# ---------------------------------------------------------------------------
+
+# attend_flash against autograd through attend_full, float32 (TF32 off):
+# name -> (heads, kv heads, head_dim, batch, seq, chunk, window)
+TRAIN_FLASH = {"phi4-mini heads": (24, 8, 128, 1, 4_096, 1_024, 0),
+               "mixtral window": (32, 8, 128, 1, 8_192, 1_024, 4_096)}
+# each of out, dq, dk, dv, ‖Δ‖/‖ref‖: both sum float32 products in other
+# orders over ≤ 8,192 keys (~1e-7 each, measured on the CPU ≤ 3e-7)
+FLASH_REL = 1e-5
+TRAIN_PARITY_ARCHS = ("phi4-mini-3.8b", "mamba2-2.7b", "mixtral-8x7b")
+TRAIN_PARITY_BATCH = (2, 256)  # TokenStream rows x tokens of the card-vs-CPU step
+TRAIN_PARITY_LR = 0.1  # the SGD step's learning rate
+TRAIN_LOSS_REL = 1e-5  # card vs CPU, the fp32 step's loss
+TRAIN_ACCUM, TRAIN_MICRO, TRAIN_SEQ = 4, 2, 4_096  # Phi-4-mini's train_4k, global batch 256 -> 8
+TRAIN_WARMUP, TRAIN_TIMED = 2, 6  # untimed then timed Phi-4-mini steps
+TRAIN_MAMBA_STEPS = 3
+# Mamba-2's train step is host-bound (on an NVIDIA H100 80GB HBM3, 700 W:
+# ~42-64 s at its 64 layers, the card ~25-34% busy: the SSD scan's chunk
+# loop a microbatch); a quarter of the depth keeps the script inside its
+# 1,200 s (1,044 s there with all 64 layers)
+TRAIN_MAMBA_LAYERS = 16
+# warmup_cosine(lr0, warmup, total), chosen for this check. Adam's first
+# steps move every weight by ~lr in its gradient's sign, so a layer's output
+# moves by ~3072 · lr · |x| against its ~|x|: at lr0 6e-4 (step 1 at 3e-4)
+# the random bf16 model's loss jumped 12.8 -> 17.7 on the card
+TRAIN_LR = (5e-5, 2, TRAIN_WARMUP + TRAIN_TIMED)
+TRAIN_EMBED = (2_048, 128)  # documents x tokens the trained model embeds for the map
+TRAIN_REDUCED = [
+    f"train_4k: global_batch 256 -> {TRAIN_ACCUM * TRAIN_MICRO} ({TRAIN_ACCUM} microbatches of {TRAIN_MICRO}, "
+    f"pre-split), seq_len {TRAIN_SEQ:,}; {TRAIN_WARMUP} + {TRAIN_TIMED} steps: the script's time limit; the "
+    "profile is of one microbatch's forward and backward (the profiler takes ~5 minutes over a whole step's kernels)",
+    f"Mamba-2: {TRAIN_MAMBA_LAYERS} of its 64 layers (the script's time limit: its step is host-bound), the "
+    f"same {TRAIN_ACCUM * TRAIN_MICRO} x {TRAIN_SEQ:,} tokens a step at its published accum_steps 8 "
+    f"(microbatches of 1), {TRAIN_MAMBA_STEPS} steps, the first untimed",
+    "weights: random from a seeded torch.Generator (bf16), not the published checkpoints; TokenStream's "
+    "synthetic Zipf tokens, not a text corpus",
+    "head_pad_to 16 -> 1, vocab_pad_to 256 -> 1 (one card, no tensor axis; a layout, not a cut)",
+    f"card vs CPU: {FWD_LAYERS} of the published layers in fp32, a TokenStream batch of "
+    f"{TRAIN_PARITY_BATCH[0]} x {TRAIN_PARITY_BATCH[1]}, accum_steps 1",
+    f"the map: the trained Phi-4-mini embeds class_token_corpus({TRAIN_EMBED[0]:,}, {TRAIN_EMBED[1]}) "
+    "and pipeline_phi4_mini's map config fits it",
+]
+
+
+def flash_check(device, label: str, H: int, KV: int, hd: int, B: int, S: int, chunk: int, window: int) -> dict:
+    """``attend_flash``'s output and q/k/v gradients against autograd through
+    ``attend_full`` in float32 (``FLASH_REL`` each), and the device memory
+    a forward + backward takes above what it started from, for flash,
+    chunked and full."""
+    import torch
+
+    from repro_torch.models import attention
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the card's fp32 attention would not be fp32")
+    g = torch.Generator(device=device).manual_seed(11)
+    q, dout = (torch.randn(B, S, H, hd, generator=g, device=device) for _ in range(2))
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=device) for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+    def run(fn, **kw):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        out = fn(*ts, pos, pos, causal=True, window=window, **kw)
+        grads = torch.autograd.grad(out, ts, dout)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        return [out.detach()] + list(grads), (torch.cuda.max_memory_allocated(device) - base) / 1e9, wall
+
+    flash, flash_gb, flash_s = run(attention.attend_flash, chunk=chunk)
+    _, chunked_gb, chunked_s = run(attention.attend_chunked, chunk=chunk)
+    full, full_gb, full_s = run(attention.attend_full)
+    rel = {n: float((a - b).norm() / b.norm()) for n, a, b in zip(("out", "dq", "dk", "dv"), flash, full)}
+    del flash, full
+    torch.cuda.empty_cache()
+    out = {"shape": label, "heads": H, "kv_heads": KV, "head_dim": hd, "batch": B, "seq": S, "chunk": chunk,
+           "window": window, "rel_vs_full": rel, "tol": FLASH_REL, "peak_gb": {"flash": flash_gb,
+           "chunked": chunked_gb, "full": full_gb}, "wall_s": {"flash": flash_s, "chunked": chunked_s, "full": full_s}}
+    if not max(rel.values()) <= FLASH_REL:
+        raise AssertionError(f"flash vs full attention on the card ({label}): {rel}")
+    if not flash_gb < chunked_gb:
+        raise AssertionError(f"flash's backward peak {flash_gb} GB is not below chunked's {chunked_gb} GB ({label})")
+    return out
+
+
+class RecordSGD:
+    """SGD that keeps a copy of the gradients it is given (for a check)."""
+
+    def __init__(self, lr: float):
+        from repro_torch.optim import SGD, constant
+
+        self.sgd = SGD(constant(lr))
+
+    def init(self, params):
+        return self.sgd.init(params)
+
+    def update_(self, params, grads, state):
+        self.grads = [g.clone() for g in grads]
+        return self.sgd.update_(params, grads, state)
+
+
+def train_parity(device, name: str) -> dict:
+    """One fp32 train step (accum 1, SGD) of ``name`` at its published widths
+    with ``FWD_LAYERS`` layers, on the card and on the port's CPU, from one
+    seeded init copied and one TokenStream batch: the loss within
+    ``TRAIN_LOSS_REL``, each leaf's gradient and SGD-updated weight within
+    ``FWD_FP32_REL``. MoE routes are compared as the forward checks do: a
+    difference must be a near-tie, and then the gradients are reported,
+    not held (a flipped route is a different function)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.loader import TokenStream
+    from repro_torch.models import lm, moe, steps
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the card's fp32 step would not be fp32")
+    B, S = TRAIN_PARITY_BATCH
+    cfg = chunked(dataclasses.replace(ARCHS[name], n_layers=FWD_LAYERS, head_pad_to=1, vocab_pad_to=1,
+                                      param_dtype="float32", compute_dtype="float32", accum_steps=1), S)
+    batch = TokenStream(cfg.vocab_size, S).batch(0, B)
+    model = lm.init_params(cfg, generator=torch.Generator(device=device).manual_seed(1))
+    cpu = copy.deepcopy(model).to("cpu")
+    out = {"arch": name, "layers": FWD_LAYERS, "d_model": cfg.d_model, "batch": [B, S], "remat": cfg.remat,
+           "params": lm.n_params(model)}
+    runs = {}
+    for where, m in (("card", model), ("cpu", cpu)):
+        opt, routes = RecordSGD(TRAIN_PARITY_LR), []
+        t0 = time.perf_counter()
+        with moe.route_hook(lambda p, i, k: routes.append((p.detach().float().cpu(), i.cpu(), k.cpu()))):
+            _, _, loss = steps.make_train_step(cfg, opt)(m, opt.init(list(m.parameters())), batch)
+        loss = float(loss)
+        out[f"{where}_step_s"] = time.perf_counter() - t0
+        runs[where] = (loss, opt.grads, routes)
+    (l_card, g_card, r_card), (l_cpu, g_cpu, r_cpu) = runs["card"], runs["cpu"]
+    flips, gaps, same = route_diffs(r_card, r_cpu, B, S)
+    if any(gp > ROUTE_TIE for gp in gaps):
+        raise AssertionError(f"{name}: routes differ card vs CPU beyond a near-tie: gaps {gaps}")
+    names = [n for n, _ in model.named_parameters()]
+    g_rel = {n: float((a.cpu() - b).norm() / b.norm()) for n, a, b in zip(names, g_card, g_cpu) if b.norm() > 0}
+    w_rel = {n: float((a.detach().cpu() - b.detach()).norm() / b.detach().norm())
+             for (n, a), (_, b) in zip(model.named_parameters(), cpu.named_parameters())}
+    held = bool(same.all())
+    out.update(loss_card=l_card, loss_cpu=l_cpu, loss_rel=abs(l_card - l_cpu) / abs(l_cpu), loss_tol=TRAIN_LOSS_REL,
+               grad_rel_max=max(g_rel.values()), grad_rel_worst=max(g_rel, key=g_rel.get),
+               weight_rel_max=max(w_rel.values()), tol=FWD_FP32_REL, leaves=len(names),
+               routes_checked=sum(int(i.numel()) for _, i, _ in r_card), route_flips=flips, route_flip_gaps=gaps,
+               grads_held=held)
+    del model, cpu, runs, g_card, g_cpu
+    torch.cuda.empty_cache()
+    if not out["loss_rel"] <= TRAIN_LOSS_REL:
+        raise AssertionError(f"{name}: the fp32 step's loss, card {l_card} vs CPU {l_cpu}")
+    if held and not (out["grad_rel_max"] <= FWD_FP32_REL and out["weight_rel_max"] <= FWD_FP32_REL):
+        raise AssertionError(f"{name}: card vs CPU gradients up to {out['grad_rel_max']} "
+                             f"({out['grad_rel_worst']}), SGD weights up to {out['weight_rel_max']}")
+    return out
+
+
+def quantizer_parity(device) -> dict:
+    """The int8 quantiser of AdamW's moments, card ≡ CPU bit for bit, on a
+    Phi-4-mini-shaped leaf (3072 x 8192), both scales."""
+    import torch
+
+    from repro_torch.optim import quantize_int8
+
+    x = torch.randn(3072, 8192, generator=torch.Generator(device=device).manual_seed(3), device=device) * 0.01
+    out = {}
+    for sq in (False, True):
+        a = quantize_int8(x.abs() if sq else x, sqrt_scaled=sq)
+        b = quantize_int8((x.abs() if sq else x).cpu(), sqrt_scaled=sq)
+        out["sqrt" if sq else "plain"] = bool(torch.equal(a.q.cpu(), b.q) and torch.equal(a.scale.cpu(), b.scale))
+    if not all(out.values()):
+        raise AssertionError(f"the int8 quantiser differs card vs CPU: {out}")
+    return out
+
+
+def train_flops(cfg, n_params: int, tokens: int, seqs: int, seq: int) -> tuple:
+    """(model FLOPs, hardware FLOPs, the float32 share of the hardware's) of
+    one step. Model: 6·N·T, plus causal attention's scores and values
+    (half the Sq × Sk square, forward 2 products and backward 4). Hardware:
+    what ran: remat reruns every layer's forward (8 instead of 6 a parameter
+    and token in the layers, 6 in the vocabulary product outside them), and
+    flash runs every (cq, ck) tile, masked or not: forward 2 products, the
+    rerun forward 2, the backward's recomputed scores and 4 products, 9 a
+    full square; the attention's products are float32 on the CUDA cores."""
+    L = cfg.n_layers
+    head = cfg.vocab_size * cfg.d_model
+    sq = 2.0 * seq * seq * cfg.n_heads * cfg.head_dim  # one product over the full square
+    attn_model = L * seqs * 3 * sq  # causal: half of (2 forward + 4 backward) products
+    attn_hw = L * seqs * 9 * sq
+    model = 6.0 * n_params * tokens + attn_model
+    hw = 8.0 * (n_params - head) * tokens + 6.0 * head * tokens + attn_hw
+    return model, hw, attn_hw
+
+
+def moment_bytes(state) -> int:
+    from repro_torch.optim import QTensor
+
+    n = 0
+    for mv in state["mu"]:
+        for t in mv.values():
+            n += t.q.numel() + t.scale.numel() * 4 if isinstance(t, QTensor) else t.numel() * t.element_size()
+    return n
+
+
+def train_full(device, model, cfg, n_steps: int, timed_from: int, lr) -> tuple:
+    """``n_steps`` AdamW steps (the config's moments) of ``model`` on
+    TokenStream batches of ``TRAIN_ACCUM * TRAIN_MICRO`` x ``TRAIN_SEQ``
+    tokens, pre-split into the config's microbatches, each timed by CUDA
+    events (the p50 and p99 from ``timed_from`` on). Then one microbatch's
+    forward and backward (the loss and ``torch.autograd.grad``, as the
+    step takes them) under the profiler, with no update, so the weights
+    have had ``n_steps`` updates when this returns: its busy share and
+    largest kernels stand for a step's, which is ``accum_steps`` such
+    passes and one update; the profiler takes minutes to sort out a whole
+    step's ~10^5-10^6 kernels. Returns (the numbers, the state)."""
+    import torch
+
+    from repro_torch.data.loader import TokenStream
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import AdamW, warmup_cosine
+
+    accum, rows = cfg.accum_steps, TRAIN_ACCUM * TRAIN_MICRO
+    opt = AdamW(schedule=warmup_cosine(*lr), moment_dtype=cfg.opt_moment_dtype)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    state = opt.init(list(model.parameters()))
+    step = steps.make_train_step(cfg, opt, microbatched=True)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ)
+
+    def batch(i):
+        return {k: torch.from_numpy(v.reshape((accum, rows // accum) + v.shape[1:])).to(device)
+                for k, v in stream.batch(i, rows).items()}
+
+    losses, events = [], []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        b = batch(i)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        model, state, loss = step(model, state, b)
+        e1.record()
+        events.append((e0, e1))
+        losses.append(loss)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated(device)
+    timed = ms[timed_from:]
+    loss_fn, mb = steps.make_loss_fn(cfg), {k: v[0] for k, v in batch(n_steps).items()}
+
+    def one():
+        with lm.trainable(model) as leaves:
+            g = torch.autograd.grad(loss_fn(model, mb)[0], leaves, allow_unused=True, materialize_grads=True)
+        del g
+
+    t0 = time.perf_counter()
+    prof_wall, prof_dev, top = device_breakdown(device, one, top=10)
+    prof_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = rows * TRAIN_SEQ
+    mflops, hflops, f32flops = train_flops(cfg, n_params, tokens, rows, TRAIN_SEQ) if cfg.n_heads else (
+        6.0 * n_params * tokens, 8.0 * n_params * tokens, 0.0)
+    p50, p99 = float(np.percentile(timed, 50)), float(np.percentile(timed, 99))
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "params": n_params,
+           "dtype": cfg.param_dtype, "remat": cfg.remat, "attn_impl": cfg.attn_impl, "accum_steps": accum,
+           "micro": rows // accum, "seq": TRAIN_SEQ, "tokens_per_step": tokens, "moments": cfg.opt_moment_dtype,
+           "lr": {"schedule": "warmup_cosine", "lr0": lr[0], "warmup": lr[1], "total_steps": lr[2]},
+           "steps": n_steps, "timed_from": timed_from, "losses": losses,
+           "step_ms": ms, "step_ms_p50": p50, "step_ms_p99": p99, "wall_s": wall,
+           "tokens_per_s": tokens / (p50 / 1e3), "model_flops": mflops, "hardware_flops": hflops,
+           "fp32_attention_flops": f32flops, "model_tflops_per_s": mflops / (p50 / 1e3) / 1e12,
+           "model_flops_share_bf16": mflops / (p50 / 1e3) / PEAK_BF16_FLOPS,
+           "hardware_tflops_per_s": hflops / (p50 / 1e3) / 1e12,
+           "fp32_attention_floor_s": f32flops / 67e12, "profiled": "one microbatch's forward and backward, no update",
+           "profiled_wall_s": prof_wall, "profiled_device_s": prof_dev, "profiler_s": prof_s,
+           "busy_share": prof_dev / prof_wall, "top_kernels": top, "peak_device_gb": peak / 1e9,
+           "held_before_gb": held / 1e9, "moment_bytes": moment_bytes(state),
+           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{cfg.name}: non-finite loss in {losses}")
+    return out, state
+
+
+def step_determinism(device, cfg) -> dict:
+    """Two 2-step runs (AdamW, int8 moments) of ``cfg`` at ``FWD_LAYERS``
+    layers from one seeded init on the same two TokenStream batches: are the
+    weights bit-equal? If not, which leaves differ, and whether one
+    microbatch's gradients already differ between two runs (and where)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.loader import TokenStream
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import AdamW, warmup_cosine
+
+    small = dataclasses.replace(cfg, n_layers=FWD_LAYERS)
+    rows = TRAIN_ACCUM * TRAIN_MICRO
+    stream = TokenStream(small.vocab_size, TRAIN_SEQ)
+    batches = [{k: torch.from_numpy(v.reshape((TRAIN_ACCUM, TRAIN_MICRO) + v.shape[1:])).to(device)
+                for k, v in stream.batch(i, rows).items()} for i in range(2)]
+
+    def run():
+        m = lm.init_params(small, generator=torch.Generator(device=device).manual_seed(5))
+        opt = AdamW(schedule=warmup_cosine(*TRAIN_LR), moment_dtype=small.opt_moment_dtype)
+        st, step = opt.init(list(m.parameters())), steps.make_train_step(small, opt, microbatched=True)
+        for b in batches:
+            m, st, _ = step(m, st, b)
+        return dict(m.named_parameters())
+
+    a, b = run(), run()
+    differ = sorted(n for n in a if not torch.equal(a[n], b[n]))
+    del a, b
+    grads_differ = []
+    if differ:
+        m = lm.init_params(small, generator=torch.Generator(device=device).manual_seed(5))
+        loss_fn = steps.make_loss_fn(small)
+        mb = {k: v[0] for k, v in batches[0].items()}
+        with lm.trainable(m) as leaves:
+            gs = [torch.autograd.grad(loss_fn(m, mb)[0], leaves) for _ in range(2)]
+        grads_differ = sorted(n for (n, _), x, y in zip(m.named_parameters(), *gs) if not torch.equal(x, y))
+        del m, gs
+    torch.cuda.empty_cache()
+    return {"layers": FWD_LAYERS, "steps": 2, "bit_equal": not differ, "leaves_differ": differ,
+            "one_microbatch_grads_differ": grads_differ}
+
+
+def train_summary(train: dict) -> dict:
+    """The train phase's line: the gates' numbers and the full-depth figures."""
+    keep = ("step_ms_p50", "step_ms_p99", "tokens_per_s", "model_tflops_per_s", "model_flops_share_bf16",
+            "hardware_tflops_per_s", "busy_share", "peak_device_gb", "moment_bytes", "losses")
+    return {"phase_s": train.get("phase_s"), "reduced": train["reduced"],
+            "flash": [{k: r[k] for k in ("shape", "rel_vs_full", "peak_gb")} for r in train["flash"]],
+            "quantizer_card_equals_cpu": train["quantizer_card_equals_cpu"],
+            "parity": [{k: r[k] for k in ("arch", "loss_rel", "grad_rel_max", "weight_rel_max", "grads_held",
+                                           "route_flips", "cpu_step_s")} for r in train["parity"]],
+            "phi4_mini": {k: train["phi4_mini"][k] for k in keep},
+            "mamba2": {k: train["mamba2"][k] for k in keep},
+            "map": train["map"], "determinism": train["determinism"], "launches": train["launches"]}
+
+
+def train_path(device) -> dict:
+    """The zoo's training path on the card: flash against full attention,
+    the card's fp32 step against the CPU's at 2 layers (Phi-4-mini, Mamba-2,
+    Mixtral), Phi-4-mini at full depth in bf16 training with int8 AdamW
+    moments, remat and flash, then the trained Phi-4-mini embedding a
+    corpus that the port maps, and Mamba-2 with ``TRAIN_MAMBA_LAYERS``
+    layers. Launch counts are read around the embed and the map; then
+    every kernel of the map is held against its plain version on the
+    trained model's rows (``check_path_kernels``)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import PIPELINE_WORKLOADS
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.data.synthetic import class_token_corpus
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+    from repro_torch.pipeline import embed_to_store
+    from repro_torch.serve import FrozenMap, MapServer
+
+    work = os.path.join(OUT_DIR, "train")
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"reduced": TRAIN_REDUCED, "flash": [], "parity": []}
+    try:
+        for label, shape in TRAIN_FLASH.items():
+            row = flash_check(device, label, *shape)
+            out["flash"].append(row)
+            print(json.dumps({"train_flash": row}), flush=True)
+        out["quantizer_card_equals_cpu"] = quantizer_parity(device)
+        for name in TRAIN_PARITY_ARCHS:
+            row = train_parity(device, name)
+            out["parity"].append(row)
+            print(json.dumps({"train_parity": row}), flush=True)
+
+        # Phi-4-mini at full depth: bf16, remat full, flash, int8 moments
+        acfg = dataclasses.replace(pipeline_arch(), remat="full", attn_impl="flash")
+        if (acfg.accum_steps, acfg.opt_moment_dtype, acfg.grad_accum_dtype) != (TRAIN_ACCUM, "int8", "float32"):
+            raise AssertionError(f"{acfg.name}: accum {acfg.accum_steps}, moments {acfg.opt_moment_dtype}")
+        model = lm.init_params(acfg, generator=torch.Generator(device=device).manual_seed(0))
+        phi, state = train_full(device, model, acfg, TRAIN_WARMUP + TRAIN_TIMED, TRAIN_WARMUP, TRAIN_LR)
+        del state
+        torch.cuda.empty_cache()
+        print(json.dumps({"train_phi4_mini": phi}), flush=True)
+        if not phi["losses"][-1] < phi["losses"][0]:
+            raise AssertionError(f"{acfg.name}: the loss did not fall: {phi['losses']}")
+        out["phi4_mini"] = phi
+
+        # the trained model embeds a corpus, and the port maps it
+        docs, classes = class_token_corpus(*TRAIN_EMBED, acfg.vocab_size, n_classes=PIPE_CLASSES, seed=4)
+        wl = PIPELINE_WORKLOADS[PIPE_WORKLOAD]
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        store = embed_to_store(model, acfg, docs, os.path.join(work, "embeddings"), pool="mean",
+                               doc_batch=PIPE_DOC_BATCH)
+        embed_s = time.perf_counter() - t0
+        x = store.materialize()
+        if x.shape != (TRAIN_EMBED[0], acfg.d_model) or not np.isfinite(x).all():
+            raise AssertionError(f"the trained model's store holds {x.shape}, finite {np.isfinite(x).all()}")
+        ncfg = wl.nomad_config(TRAIN_EMBED[0], acfg.d_model, seed=0)
+        t0 = time.perf_counter()
+        fit = NomadProjection(ncfg, device=device).fit(store)
+        fit_s = time.perf_counter() - t0
+        out["launches"] = registry.launch_counts()
+        if not all(out["launches"][n] for n in FIT_KERNELS):
+            raise AssertionError(f"the trained model's map launched {out['launches']}")
+        if not np.isfinite(fit.embedding).all():
+            raise AssertionError("the trained model's map is not finite")
+        # every kernel of the map against its plain version on the trained
+        # model's rows, the rows themselves served as the queries
+        frozen = FrozenMap.from_fit(fit, ncfg, device=device)
+        xd = torch.from_numpy(x).to(device)
+        kernels = check_path_kernels(device, fit, frozen, xd, xd, MapServer(frozen).transform(x, seed=7).embedding,
+                                     random=False)
+        out["map"] = {"docs": list(TRAIN_EMBED), "embed_s": embed_s, "fit_s": fit_s, "n_clusters": ncfg.n_clusters,
+                      "epochs": ncfg.n_epochs, "knn_class_agreement": knn_class_agreement(fit.embedding, classes, device),
+                      "launches": out["launches"], "kernels": kernels}
+        print(json.dumps({"train_map": out["map"]}, default=str), flush=True)
+        shutil.rmtree(os.path.join(work, "embeddings"), ignore_errors=True)
+        del model, store, fit, frozen, xd
+        torch.cuda.empty_cache()
+
+        out["determinism"] = step_determinism(device, acfg)
+        print(json.dumps({"train_determinism": out["determinism"]}), flush=True)
+
+        # Mamba-2 at its published widths and accum_steps, TRAIN_MAMBA_LAYERS deep
+        mcfg = dataclasses.replace(mamba_arch(), remat="full", n_layers=TRAIN_MAMBA_LAYERS)
+        model = lm.init_params(mcfg, generator=torch.Generator(device=device).manual_seed(0))
+        mamba, state = train_full(device, model, mcfg, TRAIN_MAMBA_STEPS, 1, TRAIN_LR)
+        del state, model
+        torch.cuda.empty_cache()
+        print(json.dumps({"train_mamba2": mamba}), flush=True)
+        out["mamba2"] = mamba
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: the stream path (fit and serve from an on-disk store)
 # ---------------------------------------------------------------------------
 
@@ -3089,6 +3570,11 @@ def kernel_phases(device):
     spilled = [e["entry"] for e in k5 if e.get("spill_stores") or e.get("spill_loads")]
     if len(k5) != 8 or spilled:
         raise AssertionError(f"frozen_attract: {len(k5)} of 8 instantiations in ptxas's log, spills in {spilled}")
+    # a process's first profiler session can come back without a single
+    # kernel (K1f's device time then reads 0), so a throwaway one runs first
+    import torch
+
+    device_ms(lambda: torch.ones(1, device=device).add_(1), reps=1)
     checks, timing = {}, {}
     for name, fn, args in (
         ("nomad_step", check_nomad_step, (NOMAD_SHAPES, NOMAD_MAIN)),
@@ -3147,6 +3633,10 @@ def main() -> int:
     decode = decode_path(device)
     decode["phase_s"] = time.time() - t0
     print(json.dumps({"decode_path": {"phase_s": decode["phase_s"], "launches": decode["launches"]}}), flush=True)
+    t0 = time.time()
+    train = train_path(device)
+    train["phase_s"] = time.time() - t0
+    print(json.dumps({"train_path": train_summary(train)}, default=str), flush=True)
     stream = stream_path(device, x)
     del x
     print(json.dumps({"stream_path": stream}), flush=True)
@@ -3169,7 +3659,7 @@ def main() -> int:
             "launches_by_path": {"fit": fit_n, "serve": serve_n, "partial": partial["launches"][name],
                                  "stream": stream["stream"]["launches"][name],
                                  "service": service["launches"][name], "pipeline": pipeline["launches"][name],
-                                 "decode": decode["launches"][name]},
+                                 "decode": decode["launches"][name], "train": train["launches"][name]},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
@@ -3191,7 +3681,8 @@ def main() -> int:
              for label, where, port in TPU_KERNELS]
     record = {"card": card, "build_s": build_s, "checks": checks, "timing": timing,
               "main_path": main_res, "small_quality": quality, "serve_path": serve, "partial_path": partial,
-              "service_path": service, "pipeline_path": pipeline, "decode_path": decode, "stream_path": stream,
+              "service_path": service, "pipeline_path": pipeline, "decode_path": decode, "train_path": train,
+              "stream_path": stream,
               "checkpoint_roundtrip": ckpt, "partial_small": small_partial,
               "tpu_kernels": table, "kernels": kernels}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -1,16 +1,65 @@
-"""Background prefetch for streamed reads (the port's copy of the JAX
-package's ``data/loader.py:Prefetcher``).
+"""Deterministic host data loading: the synthetic LM token stream and
+background prefetch (the port of the JAX package's ``data/loader.py``).
 
+:class:`TokenStream` is the zoo's training corpus, seeded per (stream
+name, step, shard) so every host of a multi-host job materialises exactly
+its own rows of the global batch without coordination, and a resumed run
+sees the same batches (the step counter is in the checkpoint).
 :func:`repro_torch.data.store.stream_chunks` reads chunk *i+1* of a store
-on this worker thread while the caller works on chunk *i*. The JAX
-package's ``TokenStream`` belongs to the embed pipeline and is not ported.
+on a :class:`Prefetcher` worker thread while the caller works on chunk *i*.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import zlib
 from typing import Iterator
+
+import numpy as np
+
+
+def stream_seed(name: str, step: int, shard: int) -> int:
+    """The seed of one (stream, step, shard) batch, in [0, 2**31).
+
+    The reference seeds with ``abs(hash((name, step, shard))) % 2**31``.
+    Python salts a ``str``'s hash per process, so its batches differ from
+    one process to the next unless ``PYTHONHASHSEED`` is set. The port
+    takes the name's CRC-32, a digest that is the same in every process,
+    and mixes it with the two integers through numpy's ``SeedSequence``."""
+    crc = zlib.crc32(name.encode("utf-8"))
+    return int(np.random.SeedSequence([crc, int(step), int(shard)]).generate_state(1, np.uint32)[0]) % (2**31)
+
+
+class TokenStream:
+    """Synthetic next-token corpus: Zipf-distributed ids with a Markov twist,
+    so the loss has learnable structure (the tests assert it decreases).
+
+    After the seed (:func:`stream_seed`) every draw is the reference's:
+    ``zipf(1.3)`` modulo the vocabulary for ``seq + 1`` positions, then
+    every odd position repeats its predecessor with p = 0.5. Tokens and
+    labels are int32 numpy arrays, the labels the tokens shifted by one."""
+
+    def __init__(self, vocab_size: int, seq_len: int, name: str = "train"):
+        self.vocab = vocab_size
+        self.seq = seq_len
+        self.name = name
+
+    def batch(self, step: int, batch_size: int, shard: int = 0, n_shards: int = 1) -> dict:
+        rows = batch_size // n_shards
+        rng = np.random.default_rng(stream_seed(self.name, step, shard))
+        # zipf-ish marginal, clipped to vocab
+        z = rng.zipf(1.3, size=(rows, self.seq + 1)) % self.vocab
+        # every odd position repeats the previous token with p = 0.5
+        # (learnable bigram structure)
+        rep = rng.random((rows, self.seq)) < 0.5
+        z = z.astype(np.int64)
+        for t in range(1, self.seq + 1, 2):
+            z[:, t] = np.where(rep[:, t - 1], z[:, t - 1], z[:, t])
+        return {
+            "tokens": z[:, :-1].astype(np.int32),
+            "labels": z[:, 1:].astype(np.int32),
+        }
 
 
 class Prefetcher:

@@ -14,8 +14,11 @@ and against the JAX functions):
 * ``attend_full``     — materialises the (Sq, Sk) score matrix; the oracle.
 * ``attend_chunked``  — online softmax over (q-chunk, kv-chunk) tiles, two
   Python loops in place of the reference's double ``lax.scan``; live
-  memory O(Sq·chunk). The reference's ``attend_flash`` runs this same
-  forward under a custom VJP for training; its backward is not ported.
+  memory O(Sq·chunk). Autograd through it keeps every probability tile.
+* ``attend_flash``    — the same forward as a ``torch.autograd.Function``
+  that saves only (q, k, v, out, L = m + log l) and recomputes each tile
+  in its backward (FlashAttention-2's residuals; the reference's custom
+  VJP), so a long sequence's backward holds O(Sq·chunk), not O(Sq·Sk).
 * ``attend_decode``   — one query against a cache (B, Sc, KV, hd), scored
   per kv group (q as (B, KV, g, hd)) so the cache is never repeated to H
   heads; the same products and float32 sums as the reference's
@@ -151,21 +154,20 @@ def attend_full(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0) -> torc
 # ---------------------------------------------------------------------------
 
 
-def attend_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0, chunk: int = 1024):
-    """Online-softmax attention; O(Sq·chunk) live memory instead of O(Sq·Sk).
-
-    Outer loop over q chunks, inner loop over kv chunks with the running
-    (max, sum, acc) recurrence, in float32. Fully-masked tiles still run,
-    as in the reference's static schedule.
-    """
+def _flash_fwd_impl(q, k, v, q_pos, k_pos, causal: bool, window: int, chunk: int):
+    """The online-softmax forward over (cq, ck) tiles with k/v at H heads:
+    (out (B, Sq, H, hd) in v's dtype, L (B, H, Sq) float32), L = m +
+    log(max(l, 1e-37)) the row's log-sum-exp. Outer loop over q chunks,
+    inner loop over kv chunks with the running (max, sum, acc) recurrence,
+    in float32. Fully-masked tiles still run, as in the reference's static
+    schedule."""
     B, Sq, H, hd = q.shape
-    k, v = repeat_kv(k, H), repeat_kv(v, H)
     Sk = k.shape[1]
     cq, ck = min(chunk, Sq), min(chunk, Sk)
     if Sq % cq or Sk % ck:
         raise ValueError(f"sequence lengths {(Sq, Sk)} are not multiples of the chunk {chunk}")
     scale = 1.0 / np.sqrt(hd)
-    outs = []
+    outs, Ls = [], []
     for qs in range(0, Sq, cq):
         qi, qpi = q[:, qs : qs + cq], q_pos[:, qs : qs + cq]
         m = torch.full((B, H, cq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -181,9 +183,77 @@ def attend_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0, chun
             # einsum(p.astype(v.dtype), v, preferred_element_type=f32)
             acc = acc * corr[..., None] + p.to(vi.dtype).float() @ vi.float().transpose(1, 2)
             m = m_new
-        out = acc / torch.clamp_min(l, 1e-37)[..., None]  # (B, H, cq, hd)
-        outs.append(out.transpose(1, 2))  # (B, cq, H, hd)
-    return torch.cat(outs, dim=1).to(v.dtype)
+        lc = torch.clamp_min(l, 1e-37)
+        outs.append((acc / lc[..., None]).transpose(1, 2))  # (B, cq, H, hd)
+        Ls.append(m + torch.log(lc))
+    return torch.cat(outs, dim=1).to(v.dtype), torch.cat(Ls, dim=-1)
+
+
+def attend_chunked(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0, chunk: int = 1024):
+    """Online-softmax attention; O(Sq·chunk) live memory instead of O(Sq·Sk)
+    in the forward. Autograd through it saves every tile (the reference's
+    ``attn_impl="chunked"`` baseline); :func:`attend_flash` does not."""
+    H = q.shape[2]
+    k, v = repeat_kv(k, H), repeat_kv(v, H)
+    return _flash_fwd_impl(q, k, v, q_pos, k_pos, causal, window, chunk)[0]
+
+
+def _flash_bwd_impl(q, k, v, q_pos, k_pos, out, L, dout, causal: bool, window: int, chunk: int):
+    """The reference's ``_flash_bwd_impl``: each (cq, ck) tile's scores
+    recomputed, ``p = exp(s − L)`` (0 on a masked entry: the forward's
+    NEG_INF bias), ``D = Σ dout·out``, ``ds = p·(dp − D)·scale``; dq, dk
+    and dv summed in float32 and cast to their inputs' dtypes."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    cq, ck = min(chunk, Sq), min(chunk, Sk)
+    scale = 1.0 / np.sqrt(hd)
+    D = (dout.float() * out.float()).sum(-1).transpose(1, 2)  # (B, H, Sq)
+    dq = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, H, Sk, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, H, Sk, hd), dtype=torch.float32, device=q.device)
+    for qs in range(0, Sq, cq):
+        qi = q[:, qs : qs + cq].float().transpose(1, 2)  # (B, H, cq, hd)
+        doi = dout[:, qs : qs + cq].float().transpose(1, 2)
+        qpi, Li, Di = q_pos[:, qs : qs + cq], L[..., qs : qs + cq, None], D[..., qs : qs + cq, None]
+        for ks in range(0, Sk, ck):
+            ki = k[:, ks : ks + ck].float().transpose(1, 2)  # (B, H, ck, hd)
+            vi = v[:, ks : ks + ck].float().transpose(1, 2)
+            s = qi @ ki.transpose(-1, -2) * scale + _mask_bias(qpi, k_pos[:, ks : ks + ck], causal, window)[:, None]
+            p = torch.exp(s - Li)  # (B, H, cq, ck)
+            dv[:, :, ks : ks + ck] += p.transpose(-1, -2) @ doi
+            ds = p * (doi @ vi.transpose(-1, -2) - Di) * scale
+            dq[:, :, qs : qs + cq] += ds @ ki
+            dk[:, :, ks : ks + ck] += ds.transpose(-1, -2) @ qi
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with k/v at H heads: the forward saves (q, k, v,
+    out, L) and the positions; the backward recomputes every tile."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal: bool, window: int, chunk: int):
+        out, L = _flash_fwd_impl(q, k, v, q_pos, k_pos, causal, window, chunk)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, L)
+        ctx.args = (causal, window, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, k_pos, out, L = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, q_pos, k_pos, out, L, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def attend_flash(q, k, v, q_pos, k_pos, *, causal: bool, window: int = 0, chunk: int = 1024):
+    """Memory-optimal forward and backward attention: the forward of
+    :func:`attend_chunked`, a backward that recomputes each tile. k and v
+    are repeated to H heads before the Function, as the reference repeats
+    them outside its ``custom_vjp``, so their GQA head-sum falls out of
+    autograd through :func:`repeat_kv`."""
+    H = q.shape[2]
+    k, v = repeat_kv(k, H), repeat_kv(v, H)
+    return _Flash.apply(q, k, v, q_pos, k_pos, causal, window, chunk)
 
 
 def _output(p: AttnParams, out: torch.Tensor, cfg) -> torch.Tensor:
@@ -198,12 +268,14 @@ def _output(p: AttnParams, out: torch.Tensor, cfg) -> torch.Tensor:
 def attention_block(p: AttnParams, x, positions, cfg, *, causal: bool):
     """Projection → attention → output projection (sequence forward):
     ``(y, (k, v))``, the keys and values (B, S, KV, hd) for a prefill's
-    cache. Past ``cfg.attn_chunk`` tokens it takes the chunked path, whose
-    forward is the reference's for both ``attn_impl`` values."""
+    cache. Past ``cfg.attn_chunk`` tokens it takes ``cfg.attn_impl``'s
+    path: ``"flash"`` (the default) or ``"chunked"``; their forwards are
+    the same arithmetic, their backwards differ in what they keep."""
     q, k, v = qkv_project(p, x, positions, cfg)
     window = cfg.sliding_window
     if x.shape[1] > cfg.attn_chunk:
-        out = attend_chunked(q, k, v, positions, positions, causal=causal, window=window, chunk=cfg.attn_chunk)
+        impl = attend_flash if cfg.attn_impl == "flash" else attend_chunked
+        out = impl(q, k, v, positions, positions, causal=causal, window=window, chunk=cfg.attn_chunk)
     else:
         out = attend_full(q, k, v, positions, positions, causal=causal, window=window)
     return _output(p, out, cfg), (k, v)

@@ -98,8 +98,12 @@ def _meta_block(n: _Leaves, cfg: ArchConfig) -> MetaBlock:
 
 def from_reference(tree: dict, cfg: ArchConfig, *, device=None) -> LM:
     """The port's model holding the reference tree's values (see the module
-    docstring); on ``device`` (default: the CPU, where the tests compare)."""
-    device = torch.device(device or "cpu")
+    docstring); on ``device`` (default: the card, as every entry point of
+    the port; the CPU only when asked for, and without a card this raises
+    as ``index.build.resolve_device`` does)."""
+    from repro_torch.index.build import resolve_device
+
+    device = resolve_device(device)
     root = _Leaves(tree, (), device, cfg.param_dtype)
     vocab = np.shape(tree["head"])[1] if cfg.family == "audio" else np.shape(tree["embed"])[0]
     if vocab != cfg.vocab_padded:

@@ -127,8 +127,9 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype: torch.
 
 
 def frozen(t: torch.Tensor) -> torch.nn.Parameter:
-    """A weight of the forward-only model zoo: the training steps are not
-    ported, so no parameter asks for a gradient."""
+    """A weight of the model zoo: it asks for no gradient until the train
+    step asks (``lm.trainable``, for the span of its gradients), so the
+    forward, prefill, decode and embedding record no graph."""
     return torch.nn.Parameter(t, requires_grad=False)
 
 

@@ -24,14 +24,24 @@ keeps ``idx`` a Python int (the host knows the step count) and writes
 each step's k/v slot and SSM state into the cache's tensors in place: the
 reference returns a new cache a step. The activation-sharding hint is not
 ported.
+
+Training: :func:`body` wraps each layer or meta-block by ``cfg.remat``, as
+the reference's ``_maybe_remat`` wraps its scanned body: ``"none"``,
+``"full"`` (``torch.utils.checkpoint``: a block keeps its inputs and reruns
+its forward in the backward) or ``"dots"`` (the matrix products' outputs
+kept, the rest rerun: ``checkpoint_dots``). The weights ask for gradients
+only inside :func:`trainable`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
@@ -306,18 +316,70 @@ def logits_out(params: LM, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def trainable(params: LM):
+    """Inside the block every weight of ``params`` asks for a gradient;
+    after it, none does again. Yields the weights in ``parameters()``
+    order (the order of the optimisers' state)."""
+    leaves = list(params.parameters())
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        yield leaves
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+
+
+# the matrix products whose outputs ``remat="dots"`` keeps
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(block, cfg: ArchConfig):
+    """``block`` wrapped by ``cfg.remat`` when a gradient can be asked for
+    (else as it is). The rerun in the backward reports no MoE routes
+    (``moe.routes_silenced``): a route hook sees each decision once."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return block
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r} (want 'none' | 'full' | 'dots')")
+    kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts, _save_dots)} \
+        if cfg.remat == "dots" else {}
+
+    def remat(*args):
+        runs = 0
+
+        def run(*a):
+            nonlocal runs
+            runs += 1
+            if runs == 1:
+                return block(*a)
+            with moe_lib.routes_silenced():
+                return block(*a)
+
+        return checkpoint(run, *args, use_reentrant=False, **kw)
+
+    return remat
+
+
 def body(params: LM, cfg: ArchConfig, x: torch.Tensor, *, with_cache: bool = False):
     """The layers over embedded inputs x (B, S, D) → (x, moe aux, cache)
-    before the final norm: the homogeneous stack or the Jamba meta-blocks.
-    The cache is each block's piece stacked over the blocks (the
-    reference's scan outputs), or None without ``with_cache``."""
+    before the final norm: the homogeneous stack or the Jamba meta-blocks,
+    each wrapped by ``cfg.remat`` when a gradient can be asked for. The
+    cache is each block's piece stacked over the blocks (the reference's
+    scan outputs), or None without ``with_cache``."""
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     causal = not cfg.encoder_only
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     pieces = []
     for block in params.blocks if cfg.family == "hybrid" else params.layers:
-        x, aux, piece = block(x, aux, positions, cfg, causal, with_cache)
+        x, aux, piece = _maybe_remat(block, cfg)(x, aux, positions, cfg, causal, with_cache)
         pieces.append(piece)
     if not with_cache:
         return x, aux, None

@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN: top-k routing with capacity, GShard-style (port
-of the JAX package's ``models/moe.py``, the forward; the expert-parallel
-branch waits for multi-GPU).
+of the JAX package's ``models/moe.py``; the expert-parallel branch waits
+for multi-GPU).
 
 Routing follows GShard/Switch: softmax router in fp32, top-k experts per
 token, per-expert position via a cumulative sum, tokens beyond capacity are
@@ -22,6 +22,7 @@ Exactness against the reference:
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable
 
 import numpy as np
@@ -77,6 +78,7 @@ def _route(x_flat: torch.Tensor, p: MoEParams, top_k: int):
 
 
 _ROUTE_HOOKS: list[Callable] = []
+_SILENCED = threading.local()  # depth of routes_silenced() on this thread
 
 
 @contextlib.contextmanager
@@ -92,7 +94,22 @@ def route_hook(fn: Callable):
         _ROUTE_HOOKS.remove(fn)
 
 
+@contextlib.contextmanager
+def routes_silenced():
+    """Inside the block, this thread's MoE blocks report no routes: the
+    recompute of a rematerialised layer (``lm.body`` under ``cfg.remat``)
+    makes the forward's decisions again, and a hook must see each once."""
+    depth = getattr(_SILENCED, "depth", 0)
+    _SILENCED.depth = depth + 1
+    try:
+        yield
+    finally:
+        _SILENCED.depth = depth
+
+
 def _report_routes(probs, idx, keep) -> None:
+    if getattr(_SILENCED, "depth", 0):
+        return
     for fn in _ROUTE_HOOKS:
         fn(probs, idx, keep)
 
@@ -189,7 +206,9 @@ def moe_sort(p: MoEParams, x: torch.Tensor, cfg):
 
 
 def load_balance_loss(probs: torch.Tensor, expert_of: torch.Tensor, n_experts: int) -> torch.Tensor:
-    """Switch-style auxiliary loss: E * Σ_e f_e · P_e."""
+    """Switch-style auxiliary loss: E * Σ_e f_e · P_e. The gradient reaches
+    the router through P alone: f is a count (the reference stops its
+    gradient)."""
     f = torch.bincount(expert_of.reshape(-1), minlength=n_experts).float() / max(expert_of.numel(), 1)
     P = probs.mean(0)
     return n_experts * torch.sum(f * P)

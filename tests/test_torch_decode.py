@@ -117,7 +117,7 @@ def _port_run(name: str, n_pre: int = P, n_all: int = S, **overrides):
     cache leaves)] a step, the port's full-forward logits)."""
     ref = _reference(name, n_pre, n_all, **overrides)
     cfg = reduced(ARCHS[name], **overrides)
-    model = convert.from_reference(ref["tree"], cfg)
+    model = convert.from_reference(ref["tree"], cfg, device="cpu")
     toks, patches = _inputs(cfg, n_all)
     logits, stacked = steps.make_prefill_step(cfg)(model, _batch(cfg, toks, patches, n_pre))
     cache = lm.init_cache(cfg, B, n_all, filled=n_pre, device="cpu")
@@ -275,7 +275,7 @@ def test_bf16_decode_against_reference():
     want_logits, stacked = jax.jit(ref_steps.make_prefill_step(rcfg))(params, {"tokens": jnp.asarray(toks[:, :P])})
     want_cache = ref_lm.load_cache_from_prefill(rcfg, ref_lm.init_cache(rcfg, B, S, filled=P), stacked, P)
     full = np.asarray(jax.jit(lambda p_, t_: ref_lm.forward(p_, rcfg, tokens=t_)[0])(params, jnp.asarray(toks)))
-    model = convert.from_reference(jax.tree.map(np.asarray, params), cfg)
+    model = convert.from_reference(jax.tree.map(np.asarray, params), cfg, device="cpu")
     logits, got_stacked = steps.make_prefill_step(cfg)(model, {"tokens": toks[:, :P]})
     cache = lm.load_cache_from_prefill(cfg, lm.init_cache(cfg, B, S, filled=P, device="cpu"), got_stacked, P)
     assert cache["k"].dtype == torch.bfloat16

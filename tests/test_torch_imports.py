@@ -29,6 +29,12 @@ def test_import_loads_no_jax_and_no_repro():
         "from repro_torch.models.lm import init_cache, load_cache_from_prefill, decode_step, cache_capacity\n"
         "from repro_torch.models.attention import attend_decode, attention_decode_block\n"
         "from repro_torch.models.ssm import init_ssm_state, ssm_decode_block\n"
+        "import repro_torch.optim.quantized, repro_torch.optim.sgd, repro_torch.optim.adamw, repro_torch.data.loader\n"
+        "from repro_torch.models.steps import cross_entropy, make_loss_fn, make_train_step\n"
+        "from repro_torch.models.attention import attend_flash\n"
+        "from repro_torch.models.lm import trainable\n"
+        "from repro_torch.optim import SGD, QTensor, quantize_int8, dequantize_int8\n"
+        "from repro_torch.data.loader import TokenStream, stream_seed\n"
         "from repro_torch.kernels import registry\n"
         "registry.names()  # imports every kernel module\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"

@@ -128,9 +128,36 @@ def test_adamw_first_step_reads_schedule_at_one():
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
-def test_adamw_other_moment_dtypes_not_ported(dtype):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        AdamW(schedule=constant(1e-3), moment_dtype=dtype).init([torch.zeros(2)])
+def test_adamw_other_moment_dtypes_match_jax(dtype):
+    """The bfloat16 and int8 moments: five updates of the head's layer
+    shapes and one leaf past ``QUANT_MIN_SIZE`` (int8 payloads there), the
+    weights within 1e-6 of JAX's and the stored moments equal."""
+    from repro.optim.quantized import QTensor as JaxQTensor
+    from repro_torch.optim import QTensor
+
+    rng = np.random.default_rng(1)
+    shapes = [(2, 128), (128,), (128, 128), (300, 256)]
+    params = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    kw = dict(weight_decay=1e-4, moment_dtype=dtype)
+    opt = AdamW(schedule=constant(1e-3), **kw)
+    jopt = JaxAdamW(schedule=jax_constant(1e-3), **kw)
+    p, jp = [torch.from_numpy(a) for a in params], [jnp.asarray(a) for a in params]
+    st, jst = opt.init(p), jopt.init(jp)
+    for _ in range(5):
+        g = [rng.normal(size=s).astype(np.float32) * 0.1 for s in shapes]
+        p, st = opt.update(p, [torch.from_numpy(a) for a in g], st)
+        jp, jst = jopt.update(jp, [jnp.asarray(a) for a in g], jst)
+    for a, b in zip(p, jp):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
+    for mv, jmv in zip(st["mu"], jst["mu"]):
+        assert isinstance(mv["m"], QTensor) == isinstance(jmv["m"], JaxQTensor)
+        for k in ("m", "v"):
+            if isinstance(mv[k], QTensor):
+                np.testing.assert_array_equal(mv[k].q.numpy(), np.asarray(jmv[k].q))
+                np.testing.assert_array_equal(mv[k].scale.numpy(), np.asarray(jmv[k].scale))
+            else:
+                np.testing.assert_array_equal(mv[k].float().numpy(), np.asarray(jmv[k]).astype(np.float32))
+    assert isinstance(st["mu"][-1]["m"], QTensor) == (dtype == "int8")
 
 
 # ---------------------------------------------------------------------------

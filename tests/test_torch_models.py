@@ -89,7 +89,7 @@ def _reference(ref_cfg):
 
 
 def _port(tree, cfg):
-    model = convert.from_reference(tree, cfg)
+    model = convert.from_reference(tree, cfg, device="cpu")
     kw = _inputs(cfg)
     h = hidden_states(model, cfg, **kw).float().numpy()
     with torch.inference_mode():
@@ -134,7 +134,7 @@ def test_convert_carries_every_leaf(name):
     module with the same values, and the port holds nothing else."""
     cfg = reduced(ARCHS[name])
     tree = jax.tree.map(np.asarray, _ref_params(ref_configs.reduced(ref_configs.ARCHS[name])))
-    state = convert.from_reference(tree, cfg).state_dict()
+    state = convert.from_reference(tree, cfg, device="cpu").state_dict()
     seen = set()
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
         key = _port_key(path)
@@ -145,7 +145,7 @@ def test_convert_carries_every_leaf(name):
             np.testing.assert_array_equal(state[k].float().numpy(), leaf[idx], err_msg=k)
             seen.add(k)
     assert seen == set(state)
-    assert lm.n_params(convert.from_reference(tree, cfg)) == sum(np.size(x) for x in jax.tree.leaves(tree))
+    assert lm.n_params(convert.from_reference(tree, cfg, device="cpu")) == sum(np.size(x) for x in jax.tree.leaves(tree))
 
 
 @pytest.mark.parametrize("name", sorted(ARCHS))
@@ -185,7 +185,24 @@ def test_padded_heads_and_vocab_match_reference():
     np.testing.assert_array_equal(logits[..., 500:], np.float32(-1e30))
     np.testing.assert_allclose(logits, logits_ref, **FP32_TOL)
     with pytest.raises(ValueError, match="pads to"):
-        convert.from_reference(tree, reduced(ARCHS["qwen3-14b"], vocab_size=500))
+        convert.from_reference(tree, reduced(ARCHS["qwen3-14b"], vocab_size=500), device="cpu")
+
+
+def test_from_reference_defaults_to_the_card(monkeypatch):
+    """Without a device, ``from_reference`` goes to the card as every
+    entry point of the port does, and without a card it raises as
+    ``resolve_device`` does, instead of landing on the CPU."""
+    from repro_torch.index.build import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(ARCHS["phi4-mini-3.8b"])
+    tree = jax.tree.map(np.asarray, _ref_params(ref_configs.reduced(ref_configs.ARCHS["phi4-mini-3.8b"])))
+    with pytest.raises(RuntimeError, match="device='cpu'") as got:
+        convert.from_reference(tree, cfg)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device(None)
+    assert str(got.value) == str(want.value)
+    assert convert.from_reference(tree, cfg, device="cpu").device == torch.device("cpu")
 
 
 def test_init_params_draws_the_reference_shapes_and_scales():

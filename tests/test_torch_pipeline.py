@@ -89,7 +89,7 @@ def test_pooled_vectors_match_reference(name):
     np.testing.assert_array_equal(classes, ref_classes)
     ref_cfg = REF_WORKLOADS[name].arch_config()
     params = ref_lm.init_params(jax.random.key(0), ref_cfg)
-    model = convert.from_reference(jax.tree.map(np.asarray, params), w.arch_config())
+    model = convert.from_reference(jax.tree.map(np.asarray, params), w.arch_config(), device="cpu")
     for pool in ("mean", "last"):
         want = ref_embed_corpus(params, ref_cfg, _batches(tokens, w.doc_batch), pool=pool)
         got = embed_corpus(model, w.arch_config(), _batches(tokens, w.doc_batch), pool=pool)
