@@ -117,7 +117,25 @@ Phases, each fatal on failure:
    on those rows (as the pipeline phase does); two 2-step runs at 2 layers are compared bit for bit
    (reported, not gated); Mamba-2 at its published widths with 16 of its
    64 layers takes 3 steps the same way (finite losses);
-11. a checkpoint round trip at the small fit's size: fit with
+11. the launcher (``launch_path``): ``python -m repro_torch.launch.train
+   --workload nomad_pubmed --n-points 262144 --epochs 4 --checkpoint-every
+   1`` (PubMed's widths: dim 768, K 4096, k 15, S 128, batch 8192; N and
+   the epochs cut, ``LAUNCH_REDUCED``) run in process through
+   ``launch.train.main`` with K1-K3's launches read around it (the
+   ``launch`` path's counts); a child crashed with ``--fail-at-epoch 3``
+   (exit 17) and a child resumed with ``--resume --out … --metrics``
+   (``index: cache``, ``resume: epoch 2`` or ``3``) whose embedding equals
+   the uninterrupted run's bit for bit; then on the same data
+   ``build_index(x, cfg)`` ≡ ``IndexBuilder(cfg).build(x)`` bit for bit and
+   ``kmeans_fit`` (K2 launched, its assignment the plain nearest centroid
+   of its centroids on ≥ 0.99 of the rows, counts its bincount);
+12. the dry run (``dryrun_check``): ``launch.dryrun.run_lm_cell`` on meta
+   tensors of the train phase's Phi-4-mini cell (8 × 4,096 tokens, accum 4,
+   remat full, flash, int8 moments) and the decode phase's Phi-4-mini
+   step: the predicted ``per_device_total`` beside the measured peaks
+   (reported), and the op counter's matrix-product FLOPs beside
+   ``train_flops``' hardware count, within 5% (the gate);
+13. a checkpoint round trip at the small fit's size: fit with
    ``checkpoint_dir`` (saved by the asynchronous writer),
    ``NomadProjection.from_checkpoint(dir).transform``
    bit-equal to the fitted estimator's, and the same frozen map served on
@@ -130,7 +148,7 @@ Phases, each fatal on failure:
    transform, determinism, the lineage v0 → v1 → v2 (served by
    ``registry.load_lineage``), store ≡ array growth, the kNN patch in
    blocks ≡ one batch, and the old rows' quality against a joint refit;
-12. the stream path: the main path's rows written as a bfloat16 sharded
+14. the stream path: the main path's rows written as a bfloat16 sharded
    store under ``chiprun_out/`` and fitted from disk in 65,536-row chunks
    in a child process (its own peak RSS, stage times, launch counts), its
    map serving 4,096 queries from an ``.npy`` memmap and path bit-equal to
@@ -138,7 +156,7 @@ Phases, each fatal on failure:
    RSS, and here with the same chunks: bit-equal to the store's fit; then
    the randomized PCA (D 4096) on the card against the CPU. The store and
    its spill are deleted at the end;
-13. the kernel table (the contract line), then the card, then the result.
+15. the kernel table (the contract line), then the card, then the result.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the repository's ``src/`` is not beside it. Details of every check
@@ -166,12 +184,17 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # segments left ~15 GB of it reserved but unusable (an out-of-memory stop)
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
-# NVIDIA H100 SXM data sheet: fp32 on CUDA cores (no tensor cores), TF32 on
-# the tensor cores (dense), HBM3 rate
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
+# the H100's peaks, one table for the port (repro_torch.roofline.analysis,
+# from the NVIDIA H100 SXM data sheet): fp32 on CUDA cores (no tensor
+# cores), TF32 and bf16 on the tensor cores (dense), the HBM3 rate. In a
+# directory without the repository's src/ this import fails first.
+from repro_torch.roofline.analysis import HW_H100  # noqa: E402
+
+PEAK_FP32_FLOPS = HW_H100["peak_flops_fp32"]
+PEAK_TF32_FLOPS = HW_H100["peak_flops_tf32"]
+PEAK_BF16_FLOPS = HW_H100["peak_flops"]
 TF32X3_PASSES = 3  # the 3xTF32 tile of K2 and K3 runs three TF32 products
-PEAK_BYTES_PER_S = 3.35e12
+PEAK_BYTES_PER_S = HW_H100["hbm_bw"]
 
 # the main path: PubMed's published widths, N and epochs cut to fit one call
 MAIN_N = 1_000_000
@@ -203,7 +226,9 @@ SFU_PER_CLOCK = 16  # reciprocals (and logs) an SM issues a clock on its special
 @functools.lru_cache(maxsize=None)
 def sfu_rate() -> float:
     """SFU operations a second of the whole card: SMs × 16 a clock × the
-    card's top SM clock (nvidia-smi's clocks.max.sm)."""
+    card's top SM clock (nvidia-smi's clocks.max.sm), read from the card
+    (``HW_H100["sfu_rate"]`` is the same product at the H100 SXM's 132 SMs
+    and 1.98 GHz)."""
     import torch
 
     mhz = subprocess.run(
@@ -1894,7 +1919,6 @@ PIPE_HELD_OUT = 1_024  # documents of class_token_corpus(seed=1), placed through
 PIPE_FIT = dict(n_clusters=64, batch_size=2_048, chunk_rows=4_096)
 PIPE_AGREEMENT_K = 10
 PIPE_AGREEMENT_MIN = 3.0 / PIPE_CLASSES  # 0.375: three times chance
-PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, bf16 dense on the tensor cores
 FWD_ARCHS = ("phi4-mini-3.8b", "mamba2-2.7b", "mixtral-8x7b")
 FWD_LAYERS = 2
 FWD_DOCS = 4
@@ -2983,17 +3007,21 @@ def train_flops(cfg, n_params: int, tokens: int, seqs: int, seq: int) -> tuple:
     one step. Model: 6·N·T, plus causal attention's scores and values
     (half the Sq × Sk square, forward 2 products and backward 4). Hardware:
     what ran: remat reruns every layer's forward (8 instead of 6 a parameter
-    and token in the layers, 6 in the vocabulary product outside them), and
-    flash runs every (cq, ck) tile, masked or not: forward 2 products, the
-    rerun forward 2, the backward's recomputed scores and 4 products, 9 a
-    full square; the attention's products are float32 on the CUDA cores."""
+    and token in the layers, 6 in the vocabulary product outside them)
+    except its last product, the SwiGLU's down projection: the rerun stops
+    once the tensors the backward saved are back (torch.utils.checkpoint's
+    early stop), and nothing saves that product's output. Flash runs every
+    (cq, ck) tile, masked or not: forward 2 products, the rerun forward 2,
+    the backward's recomputed scores and 4 products, 9 a full square; the
+    attention's products are float32 on the CUDA cores."""
     L = cfg.n_layers
     head = cfg.vocab_size * cfg.d_model
     sq = 2.0 * seq * seq * cfg.n_heads * cfg.head_dim  # one product over the full square
     attn_model = L * seqs * 3 * sq  # causal: half of (2 forward + 4 backward) products
     attn_hw = L * seqs * 9 * sq
     model = 6.0 * n_params * tokens + attn_model
-    hw = 8.0 * (n_params - head) * tokens + 6.0 * head * tokens + attn_hw
+    down = 2.0 * cfg.d_model * cfg.d_ff * L * tokens if cfg.remat == "full" else 0.0  # not rerun
+    hw = 8.0 * (n_params - head) * tokens - down + 6.0 * head * tokens + attn_hw
     return model, hw, attn_hw
 
 
@@ -3078,7 +3106,7 @@ def train_full(device, model, cfg, n_steps: int, timed_from: int, lr) -> tuple:
            "fp32_attention_flops": f32flops, "model_tflops_per_s": mflops / (p50 / 1e3) / 1e12,
            "model_flops_share_bf16": mflops / (p50 / 1e3) / PEAK_BF16_FLOPS,
            "hardware_tflops_per_s": hflops / (p50 / 1e3) / 1e12,
-           "fp32_attention_floor_s": f32flops / 67e12, "profiled": "one microbatch's forward and backward, no update",
+           "fp32_attention_floor_s": f32flops / PEAK_FP32_FLOPS, "profiled": "one microbatch's forward and backward, no update",
            "profiled_wall_s": prof_wall, "profiled_device_s": prof_dev, "profiler_s": prof_s,
            "busy_share": prof_dev / prof_wall, "top_kernels": top, "peak_device_gb": peak / 1e9,
            "held_before_gb": held / 1e9, "moment_bytes": moment_bytes(state),
@@ -3242,6 +3270,199 @@ def train_path(device) -> dict:
         out["mamba2"] = mamba
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The launcher (crash and resume) and the dry run
+# ---------------------------------------------------------------------------
+
+LAUNCH_WORKLOAD = "nomad_pubmed"
+LAUNCH_N = 262_144
+LAUNCH_EPOCHS = 4
+LAUNCH_FAIL_AT = 3  # the crash run exits at the start of this epoch
+LAUNCH_ASSIGN_MIN = 0.99  # kmeans_fit's assignment ≡ the plain nearest centroid (the repo's rule)
+LAUNCH_REDUCED = [
+    f"n_points 24,000,000 -> {LAUNCH_N:,} (three fits and two index builds inside the phase's time)",
+    f"n_epochs 60 -> {LAUNCH_EPOCHS} (a checkpoint every epoch, the crash at the start of epoch {LAUNCH_FAIL_AT})",
+    f"data: hierarchical_mixture({LAUNCH_N:,}, 768, seed 0), the launcher's own, in place of PubMed BERT vectors",
+]
+DRYRUN_FLOP_REL = 0.05  # the op counter's matrix-product FLOPs against train_flops' hardware count
+
+
+def _launcher(argv, *, in_process: bool):
+    """One run of ``python -m repro_torch.launch.train argv``: (return code,
+    stdout, wall s, the fit's stage times). In process through
+    ``launch.train.main`` (stdout captured), else a child process."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as launch_train
+
+    t0 = time.perf_counter()
+    if in_process:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launch_train.main(argv)
+        text = buf.getvalue()
+    else:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv], capture_output=True,
+                           text=True, timeout=900, env=env, cwd=ROOT)
+        rc, text = r.returncode, r.stdout + r.stderr[-4000:]
+    wall = time.perf_counter() - t0
+    stages = [json.loads(ln[len("stages "):]) for ln in text.splitlines() if ln.startswith("stages ")]
+    return rc, text, wall, stages[0] if stages else None
+
+
+def launch_path(device) -> dict:
+    """The one-card launcher at PubMed's widths (``LAUNCH_REDUCED``): an
+    uninterrupted run in process through ``launch.train.main`` with K1-K3's
+    launches read around it; a child crashed at the start of epoch
+    ``LAUNCH_FAIL_AT`` (exit 17) and a child resumed from its asynchronous
+    checkpoint (``index: cache``, ``resume: epoch 2`` or ``3``) whose
+    embedding must equal the uninterrupted run's bit for bit; then on the
+    same data ``build_index`` ≡ ``IndexBuilder.build`` bit for bit and
+    ``kmeans_fit`` (K2 launched, its assignment ≡ the plain nearest centroid
+    of its centroids on ≥ ``LAUNCH_ASSIGN_MIN`` of the rows, counts its
+    bincount)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_nomad
+    from repro_torch.data.synthetic import hierarchical_mixture
+    from repro_torch.index import IndexBuilder, build_index, kmeans_fit
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.kmeans_assign import ops as k2_ops
+    from repro_torch.kernels.kmeans_assign.ops import assign_nearest_plain
+
+    work = os.path.join(OUT_DIR, "launch")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    common = ["--workload", LAUNCH_WORKLOAD, "--n-points", str(LAUNCH_N), "--epochs", str(LAUNCH_EPOCHS),
+              "--checkpoint-every", "1"]
+    out = {"reduced": LAUNCH_REDUCED, "runs": {}}
+    t_phase = time.perf_counter()
+    try:
+        emb_a, emb_b = os.path.join(work, "uninterrupted.npy"), os.path.join(work, "resumed.npy")
+        registry.reset_launch_counts()
+        rc, text, wall, stages = _launcher(common + ["--checkpoint-dir", os.path.join(work, "a"), "--out", emb_a],
+                                           in_process=True)
+        launches = registry.launch_counts()
+        out["runs"]["uninterrupted"] = {"rc": rc, "wall_s": wall, "stage_s": stages}
+        out["launches"] = launches
+        if rc != 0 or "index: local" not in text:
+            raise AssertionError(f"the uninterrupted launch returned {rc}:\n{text[-3000:]}")
+        if not all(launches[n] for n in FIT_KERNELS):
+            raise AssertionError(f"the launcher's fit launched {launches}")
+        ck_b = ["--checkpoint-dir", os.path.join(work, "b")]
+        rc, text, wall, stages = _launcher(common + ck_b + ["--fail-at-epoch", str(LAUNCH_FAIL_AT)], in_process=False)
+        out["runs"]["crash"] = {"rc": rc, "wall_s": wall, "stage_s": stages}
+        if rc != 17 or f"CRASH INJECTION at epoch {LAUNCH_FAIL_AT}" not in text:
+            raise AssertionError(f"the crash run returned {rc}, not 17:\n{text[-3000:]}")
+        rc, text, wall, stages = _launcher(common + ck_b + ["--resume", "--out", emb_b, "--metrics"], in_process=False)
+        resumed_at = [ln for ln in text.splitlines() if ln.startswith("resume: ")]
+        metrics = [ln for ln in text.splitlines() if ln.startswith("NP@10=")]
+        out["runs"]["resume"] = {"rc": rc, "wall_s": wall, "stage_s": stages, "resume_line": resumed_at,
+                                 "metrics_line": metrics}
+        if rc != 0 or "index: cache" not in text or not any(
+                f"resume: epoch {e} " in ln for ln in resumed_at for e in (LAUNCH_FAIL_AT - 1, LAUNCH_FAIL_AT)):
+            raise AssertionError(f"the resumed run returned {rc}:\n{text[-3000:]}")
+        a, b = np.load(emb_a), np.load(emb_b)
+        out["resumed_equals_uninterrupted"] = bool(a.shape == (LAUNCH_N, 2) and np.array_equal(a, b))
+        if not out["resumed_equals_uninterrupted"] or not np.isfinite(a).all():
+            raise AssertionError(f"the resumed embedding differs from the uninterrupted one "
+                                 f"({int((a != b).any(1).sum())} rows)")
+
+        # the front doors on the same data
+        cfg = get_nomad(LAUNCH_WORKLOAD).replace(n_points=LAUNCH_N)
+        x, _sup, _sub = hierarchical_mixture(cfg.n_points, cfg.dim, seed=cfg.seed)
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        i1 = build_index(x, cfg, device=device)
+        build_s = time.perf_counter() - t0
+        build_launches = registry.launch_counts()
+        builder = IndexBuilder(cfg, device=device)
+        i2 = builder.build(x)
+        fields = ("x_rows", "knn_idx", "knn_w", "counts", "centroids", "perm")
+        same = {f: bool(np.array_equal(getattr(i1, f), getattr(i2, f))) for f in fields}
+        out["build_index"] = {"wall_s": build_s, "stage_s": builder.report.stage_s, "launches": build_launches,
+                              "equals_index_builder": same}
+        if not all(same.values()) or not (build_launches["kmeans_assign"] and build_launches["pairwise"]):
+            raise AssertionError(f"build_index ≢ IndexBuilder.build: {same}, launches {build_launches}")
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        cents, assign, counts = kmeans_fit(cfg.seed, x, cfg.n_clusters, n_iters=cfg.kmeans_iters, tol=cfg.kmeans_tol,
+                                           device=device)
+        torch.cuda.synchronize(device)
+        km_s = time.perf_counter() - t0
+        km_launches = registry.launch_counts()
+        xd = torch.from_numpy(x).to(device)
+        plain = torch.cat([assign_nearest_plain(xd[s : s + 16384], cents)[0] for s in range(0, LAUNCH_N, 16384)])
+        share = float((plain == assign).float().mean())
+        counts_ok = bool(torch.equal(counts, torch.bincount(assign.long(), minlength=cfg.n_clusters).float())
+                         and int(counts.sum()) == LAUNCH_N)
+        # the rows that differ: is K2's pick as near as the plain one, by K2's oracle tolerance?
+        diff = (plain != assign).nonzero()[:, 0]
+        d_k2 = torch.sum(torch.square(xd[diff] - cents[assign[diff].long()]), -1)
+        d_plain = torch.sum(torch.square(xd[diff] - cents[plain[diff].long()]), -1)
+        rtol, atol = k2_ops.TOL
+        near = float(((d_k2 - d_plain).abs() <= atol + rtol * d_plain.abs()).float().mean()) if len(diff) else 1.0
+        out["kmeans_fit"] = {"wall_s": km_s, "launches": km_launches, "assign_equals_plain": share,
+                             "differing_rows_near_ties": near, "counts_are_bincount": counts_ok,
+                             "empty_clusters": int((counts == 0).sum())}
+        if not km_launches["kmeans_assign"] or share < LAUNCH_ASSIGN_MIN or not counts_ok:
+            raise AssertionError(f"kmeans_fit: {out['kmeans_fit']}")
+        del xd, plain, d_k2, d_plain
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def dryrun_check(train: dict, decode: dict) -> dict:
+    """The dry run (``repro_torch.launch.dryrun.run_lm_cell``, on meta
+    tensors) of the train phase's own Phi-4-mini cell (``TRAIN_REDUCED``)
+    and of the decode phase's Phi-4-mini step: the predicted memory beside
+    the measured peaks (reported: the caching allocator rounds up) and the
+    op counter's matrix-product FLOPs beside ``train_flops``' hardware
+    count, within ``DRYRUN_FLOP_REL`` (the gate: two counts of the same
+    products)."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import run_lm_cell
+
+    t0 = time.perf_counter()
+    phi = train["phi4_mini"]
+    tcfg = dataclasses.replace(pipeline_arch(), remat="full", attn_impl="flash")
+    tshape = ShapeConfig("train_4k_reduced", "train", TRAIN_SEQ, TRAIN_ACCUM * TRAIN_MICRO)
+    rec = run_lm_cell(tcfg, tshape)
+    flop_rel = rec["op_cost"]["dot_flops"] / phi["hardware_flops"] - 1.0
+    out = {"train": {"cell": [TRAIN_ACCUM * TRAIN_MICRO, TRAIN_SEQ, TRAIN_ACCUM], "trace_s": rec["trace_s"],
+                     "memory": rec["memory"], "measured_peak_bytes": phi["peak_device_gb"] * 1e9,
+                     "memory_ratio": rec["memory"]["per_device_total"] / (phi["peak_device_gb"] * 1e9),
+                     "dot_flops": rec["op_cost"]["dot_flops"], "dot_by_op": rec["op_cost"]["dot_by_op"],
+                     "train_flops_hardware": phi["hardware_flops"], "flop_rel": flop_rel,
+                     "op_flops": rec["op_cost"]["flops"], "op_bytes": rec["op_cost"]["bytes"],
+                     "terms": rec["terms"], "model_flops": rec["model_flops"],
+                     "measured_step_ms_p50": phi["step_ms_p50"]}}
+    print(json.dumps({"dryrun_train": out["train"]}), flush=True)
+    if not abs(flop_rel) <= DRYRUN_FLOP_REL:
+        raise AssertionError(f"the dry run counts {rec['op_cost']['dot_flops']:.6e} matrix-product FLOPs, "
+                             f"train_flops {phi['hardware_flops']:.6e} ({flop_rel:+.2%})")
+    dphi = decode["phi4_mini"]
+    dshape = ShapeConfig("decode_reduced", "decode", dphi["cache_capacity"], dphi["batch"])
+    drec = run_lm_cell(pipeline_arch(), dshape)
+    out["decode"] = {"cell": [dphi["batch"], dphi["cache_capacity"]], "trace_s": drec["trace_s"],
+                     "memory": drec["memory"], "measured_peak_bytes_with_prefill": dphi["peak_device_gb"] * 1e9,
+                     "dot_flops": drec["op_cost"]["dot_flops"], "op_bytes": drec["op_cost"]["bytes"],
+                     "memory_bound_ms": drec["terms"]["memory_s"] * 1e3, "terms": drec["terms"],
+                     "model_flops": drec["model_flops"], "measured_step_ms_p50": dphi["step_ms_p50"],
+                     "measured_step_bound_ms": dphi["step_bound_ms"]}
+    print(json.dumps({"dryrun_decode": out["decode"]}), flush=True)
+    out["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3637,6 +3858,11 @@ def main() -> int:
     train = train_path(device)
     train["phase_s"] = time.time() - t0
     print(json.dumps({"train_path": train_summary(train)}, default=str), flush=True)
+    launch = launch_path(device)
+    print(json.dumps({"launch_path": launch}, default=str), flush=True)
+    dryrun = dryrun_check(train, decode)
+    print(json.dumps({"dryrun_check": {"phase_s": dryrun["phase_s"], "flop_rel": dryrun["train"]["flop_rel"],
+                                       "memory_ratio": dryrun["train"]["memory_ratio"]}}), flush=True)
     stream = stream_path(device, x)
     del x
     print(json.dumps({"stream_path": stream}), flush=True)
@@ -3659,7 +3885,8 @@ def main() -> int:
             "launches_by_path": {"fit": fit_n, "serve": serve_n, "partial": partial["launches"][name],
                                  "stream": stream["stream"]["launches"][name],
                                  "service": service["launches"][name], "pipeline": pipeline["launches"][name],
-                                 "decode": decode["launches"][name], "train": train["launches"][name]},
+                                 "decode": decode["launches"][name], "train": train["launches"][name],
+                                 "launch": launch["launches"][name]},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
@@ -3682,7 +3909,7 @@ def main() -> int:
     record = {"card": card, "build_s": build_s, "checks": checks, "timing": timing,
               "main_path": main_res, "small_quality": quality, "serve_path": serve, "partial_path": partial,
               "service_path": service, "pipeline_path": pipeline, "decode_path": decode, "train_path": train,
-              "stream_path": stream,
+              "launch_path": launch, "dryrun_check": dryrun, "stream_path": stream,
               "checkpoint_roundtrip": ckpt, "partial_small": small_partial,
               "tpu_kernels": table, "kernels": kernels}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -1,0 +1,3 @@
+from repro_torch.core.cauchy import cauchy, cauchy_pairwise
+
+__all__ = ["cauchy", "cauchy_pairwise"]

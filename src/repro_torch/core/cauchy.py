@@ -14,3 +14,11 @@ def cauchy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d2 = torch.sum(torch.square(a.float() - b.float()), -1)
     return 1.0 / (1.0 + d2)
 
+
+def cauchy_pairwise(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(Na, d) × (Nb, d) → (Na, Nb) Cauchy affinities, in the JAX package's
+    product form ‖a‖² + ‖b‖² − 2ab, clamped at 0 before the affinity."""
+    a = a.float()
+    b = b.float()
+    d2 = torch.sum(torch.square(a), -1)[:, None] + torch.sum(torch.square(b), -1)[None, :] - 2.0 * (a @ b.T)
+    return 1.0 / (1.0 + torch.clamp_min(d2, 0.0))

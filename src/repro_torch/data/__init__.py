@@ -8,7 +8,13 @@ from repro_torch.data.store import (
     stream_chunks,
     write_sharded,
 )
-from repro_torch.data.synthetic import class_token_corpus, gaussian_mixture, gaussian_mixture_store
+from repro_torch.data.synthetic import (
+    class_token_corpus,
+    gaussian_mixture,
+    gaussian_mixture_store,
+    hierarchical_mixture,
+    swiss_roll,
+)
 
 __all__ = [
     "ArrayStore",
@@ -19,7 +25,9 @@ __all__ = [
     "class_token_corpus",
     "gaussian_mixture",
     "gaussian_mixture_store",
+    "hierarchical_mixture",
     "is_store",
     "stream_chunks",
+    "swiss_roll",
     "write_sharded",
 ]

@@ -1,8 +1,8 @@
 """Synthetic corpora standing in for the paper's datasets (port copy).
 
-``gaussian_mixture`` and ``class_token_corpus`` draw with numpy from one
-seed, so the port and the JAX package see the very same rows and tokens
-for the same arguments.
+Every generator here draws with numpy from one seed, in the JAX
+package's order, so the port and the JAX package see the very same rows
+and tokens for the same arguments.
 """
 
 from __future__ import annotations
@@ -97,3 +97,40 @@ def class_token_corpus(
     mask = rng.random((n_docs, seq_len)) < keep
     tokens = np.where(mask, base[classes], noise).astype(np.int32)
     return tokens, classes
+
+
+def hierarchical_mixture(
+    n: int,
+    dim: int,
+    n_super: int = 6,
+    n_sub: int = 5,
+    super_spread: float = 0.35,
+    sub_spread: float = 0.06,
+    seed: int = 0,
+):
+    """Two-level tree: returns (x, super_labels, sub_labels)."""
+    rng = np.random.default_rng(seed)
+    supers = rng.normal(0, 1, (n_super, dim))
+    supers /= np.linalg.norm(supers, axis=1, keepdims=True)
+    subs = supers[:, None, :] + rng.normal(0, super_spread / np.sqrt(dim), (n_super, n_sub, dim))
+    sup = rng.integers(0, n_super, n)
+    sub = rng.integers(0, n_sub, n)
+    x = subs[sup, sub] + rng.normal(0, sub_spread / np.sqrt(dim), (n, dim))
+    return x.astype(np.float32), sup, sup * n_sub + sub
+
+
+def swiss_roll(n: int, dim: int = 3, noise: float = 0.02, seed: int = 0):
+    """Swiss roll lifted into ``dim`` dimensions by a random rotation:
+    returns (x (n, dim) float32, t (n,) the roll's parameter)."""
+    rng = np.random.default_rng(seed)
+    t = 1.5 * np.pi * (1 + 2 * rng.random(n))
+    h = 21.0 * rng.random(n)
+    x3 = np.stack([t * np.cos(t), h, t * np.sin(t)], axis=1)
+    x3 = (x3 - x3.mean(0)) / x3.std(0)
+    x3 += rng.normal(0, noise, x3.shape)
+    if dim > 3:
+        q, _ = np.linalg.qr(rng.normal(0, 1, (dim, dim)))
+        x = x3 @ q[:3, :]
+    else:
+        x = x3
+    return x.astype(np.float32), t

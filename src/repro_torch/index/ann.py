@@ -13,9 +13,11 @@ centroids  (K, D)
 perm       (N,)       original index → row (for un-permuting outputs)
 fingerprint           content hash of the data the index was built from
 
-``save_index``/``load_index`` read and write the JAX package's
-``index.npz`` layout, and :func:`index_from_arrays` takes its fields as a
-dict of arrays, so an index built by either package steps in the other.
+:func:`build_index` is the front door over
+:class:`repro_torch.index.build.IndexBuilder`. ``save_index``/``load_index``
+read and write the JAX package's ``index.npz`` layout, and
+:func:`index_from_arrays` takes its fields as a dict of arrays, so an
+index built by either package steps in the other.
 """
 
 from __future__ import annotations
@@ -132,3 +134,20 @@ def load_index(path: str) -> AnnIndex:
     else:
         fields["x_rows"] = z["x_rows"]
     return index_from_arrays(fields)
+
+
+def build_index(x, cfg, *, device=None, strategy=None) -> AnnIndex:
+    """K-means (LSH init) → capacity-bounded clusters → in-cluster exact
+    kNN: ``IndexBuilder(cfg, device=device).build(x)``, on the card unless
+    ``device`` asks for the CPU. ``x`` is an array or a store (the
+    streamed build). ``strategy`` may be None, ``"local"`` or ``"auto"``:
+    the port builds on one device; the sharded build waits for multi-GPU
+    (ROADMAP.md, queue 1 item 5)."""
+    from repro_torch.index.build import IndexBuilder
+
+    if strategy not in (None, "local", "auto"):
+        raise NotImplementedError(
+            f"build strategy {strategy!r}: the port builds on one device; the sharded build "
+            "waits for multi-GPU (ROADMAP.md, queue 1 item 5)"
+        )
+    return IndexBuilder(cfg, device=device).build(x)

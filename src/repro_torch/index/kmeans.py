@@ -11,6 +11,9 @@ adds duplicates in a fixed order, so EM repeats bit for bit on the card.
 
 :func:`kmeans_centroids_streamed` runs the same LSH init and EM over an
 on-disk store, one chunk at a time (the streamed build's kmeans stage).
+:func:`kmeans_fit` is the front door that also returns the assignment;
+:func:`capacity_assign` is the JAX package's host oracle of the
+capacity-bounded assignment, in numpy.
 """
 
 from __future__ import annotations
@@ -113,6 +116,101 @@ def kmeans_centroids(
     if cents0 is None:
         cents0 = lsh_init_centroids(gen, x, n_clusters)
     return em_loop(x, cents0, n_clusters, n_iters, tol, min(block, x.shape[0]))
+
+
+def kmeans_fit(
+    seed_or_generator,
+    x,
+    n_clusters: int,
+    n_iters: int = 25,
+    tol: float = 1e-4,
+    *,
+    block: int = 16384,
+    device=None,
+):
+    """Lloyd's EM from LSH init. Returns ``(centroids (K, D) float32,
+    assign (N,) int32, counts (K,) float32)`` on ``device`` (the card
+    unless the caller asks for the CPU).
+
+    ``seed_or_generator`` is an int (seeded as the index build seeds its
+    k-means) or a ``torch.Generator`` on ``device``; ``x`` an (N, D) array
+    or tensor. EM is :func:`em_loop`, every E-step through the
+    ``kmeans_assign`` kernel. The returned assignment is always the
+    nearest-centroid assignment of the returned centroids (one more E-step
+    on them) and ``counts`` its bincount, as the JAX package's alignment
+    rule gives them.
+    """
+    from repro_torch.index.build import resolve_device, seeded_generator
+
+    device = resolve_device(device)
+    gen = seed_or_generator
+    if not isinstance(gen, torch.Generator):
+        gen = seeded_generator(device, int(gen))
+    xd = torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x, np.float32)).to(device)
+    blk = min(block, xd.shape[0])
+    cents = em_loop(xd, lsh_init_centroids(gen, xd, n_clusters), n_clusters, n_iters, tol, blk)
+    assign, _ = blocked_assign(xd, cents, blk)
+    counts = torch.bincount(assign.long(), minlength=n_clusters).float()
+    return cents, assign, counts
+
+
+def capacity_assign(
+    dist2_fn,
+    x: np.ndarray,
+    cents: np.ndarray,
+    capacity: int,
+    max_rounds: int = 12,
+) -> np.ndarray:
+    """Capacity-bounded nearest-centroid assignment, the JAX package's
+    host oracle in numpy (the build runs
+    :func:`repro_torch.index.build.capacity_assign_device`).
+
+    Greedy rounds: each unassigned point bids for its nearest centroid
+    with free capacity; each centroid admits its ``capacity`` closest
+    bidders (stable order among equal distances). A rejected bidder's
+    centroid is full from that round on, so the ``free <= 0`` mask covers
+    every cluster it may not bid for again. After ``max_rounds`` the
+    stragglers go, in row order, to their nearest centroid with space.
+    ``dist2_fn(a, b)`` gives the (len(a), len(b)) squared distances.
+    """
+    n = x.shape[0]
+    K = cents.shape[0]
+    assign = np.full(n, -1, np.int64)
+    free = np.full(K, capacity, np.int64)
+
+    for _ in range(max_rounds):
+        todo = np.flatnonzero(assign < 0)
+        if todo.size == 0:
+            return assign
+        d2 = dist2_fn(x[todo], cents)  # (T, K)
+        d2 = np.where(free[None, :] <= 0, np.inf, d2)
+        pick = np.argmin(d2, 1)
+        for c in range(K):
+            if free[c] <= 0:
+                continue
+            bidders = todo[pick == c]
+            if bidders.size == 0:
+                continue
+            if bidders.size > free[c]:
+                order = np.argsort(d2[pick == c, c], kind="stable")
+                admitted = bidders[order[: free[c]]]
+            else:
+                admitted = bidders
+            assign[admitted] = c
+            free[c] -= admitted.size
+    todo = np.flatnonzero(assign < 0)
+    if todo.size:
+        d2 = dist2_fn(x[todo], cents)
+        order = np.argsort(d2, axis=1)
+        for t, row in zip(todo, order):
+            for c in row:
+                if free[c] > 0:
+                    assign[t] = c
+                    free[c] -= 1
+                    break
+    if (assign < 0).any():
+        raise RuntimeError("capacity_assign: total capacity < N")
+    return assign
 
 
 # ---------------------------------------------------------------------------

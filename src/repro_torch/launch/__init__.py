@@ -1,0 +1,4 @@
+"""Command-line entry points of the port: ``python -m repro_torch.launch.train``
+(fit a NOMAD workload on one card, with checkpoints, crash and resume) and
+``python -m repro_torch.launch.dryrun`` (a step's cost and memory on meta
+tensors, against the H100's peaks)."""

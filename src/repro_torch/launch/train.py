@@ -1,0 +1,143 @@
+"""NOMAD Projection end-to-end training launcher on one device.
+
+A thin CLI over the estimator; everything fault-tolerant lives in
+``NomadProjection.fit``:
+
+* the index build (K-means + in-cluster kNN) is cached beside the
+  checkpoints (``<checkpoint-dir>/index.npz``, fingerprint-checked): a
+  restart reloads it (``index: cache``) instead of rebuilding;
+* one checkpoint every ``--checkpoint-every`` epochs, written by the
+  asynchronous writer and committed by an atomic rename, so a crash loses
+  at most the save in flight, never the one before it;
+* ``--resume`` restores θ and the epoch and continues bit for bit: every
+  epoch draws from its own seeded generator, so a run resumed from any
+  checkpoint ends on the uninterrupted run's embedding.
+
+The data is ``hierarchical_mixture(n_points, dim, seed)``. Printed lines
+are the JAX package's launcher's (``epoch …``, ``checkpoint: …``,
+``resume: …``, ``index: …``, ``embedding → …``, ``NP@10=…``), so a script
+reading one reads the other; ``stages {…}`` adds the fit's stage times
+(seconds, JSON). One device only: ``--mesh`` other than ""
+or "1", ``--host-devices`` above 1 and ``--hierarchical`` exit with status
+2 (multi-GPU is ROADMAP.md queue 1 item 5).
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --workload nomad_quickstart \\
+      --epochs 10 --checkpoint-dir /tmp/nomad_ckpt --checkpoint-every 2
+  … kill it mid-run (or --fail-at-epoch 5), then:
+  PYTHONPATH=src python -m repro_torch.launch.train --workload nomad_quickstart \\
+      --epochs 10 --checkpoint-dir /tmp/nomad_ckpt --resume --out emb.npy
+Add ``--device cpu`` to run the plain path without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+MULTI_GPU = "the port runs on one device; multi-GPU waits (ROADMAP.md, queue 1 item 5)"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--workload", default="nomad_quickstart")
+    ap.add_argument("--n-points", type=int, default=0, help="override workload size")
+    ap.add_argument("--epochs", type=int, default=0, help="override epoch count")
+    ap.add_argument("--mesh", default="", help="one device: '' or '1'")
+    ap.add_argument("--host-devices", type=int, default=0, help="one device: 0 or 1")
+    ap.add_argument("--device", default=None, help="torch device (default: the first CUDA device)")
+    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--hierarchical", action="store_true", help="refused: needs several devices")
+    ap.add_argument("--fail-at-epoch", type=int, default=-1, help="crash injection (tests)")
+    ap.add_argument("--out", default="", help="write final embedding .npy here")
+    ap.add_argument("--metrics", action="store_true", help="NP@10/triplet at the end")
+    return ap
+
+
+def parse_args(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.mesh not in ("", "1"):
+        ap.error(f"--mesh {args.mesh}: {MULTI_GPU}")
+    if args.host_devices > 1:
+        ap.error(f"--host-devices {args.host_devices}: {MULTI_GPU}")
+    if args.hierarchical:
+        ap.error(f"--hierarchical: {MULTI_GPU}")
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+
+    from repro_torch.checkpoint import latest_step, load_metadata
+    from repro_torch.configs import get_nomad
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.core.strategy import FitCallbacks
+    from repro_torch.data.synthetic import hierarchical_mixture
+    from repro_torch.index.build import resolve_device
+
+    cfg = get_nomad(args.workload)
+    if args.n_points:
+        cfg = cfg.replace(n_points=args.n_points)
+    if args.epochs:
+        cfg = cfg.replace(n_epochs=args.epochs)
+    if args.checkpoint_dir:
+        cfg = cfg.replace(checkpoint_dir=args.checkpoint_dir)
+    if args.checkpoint_every:
+        cfg = cfg.replace(checkpoint_every_epochs=args.checkpoint_every)
+    device = resolve_device(args.device)
+    print(f"device {device}; 1 shard", flush=True)
+
+    # the index is owned by fit: fingerprint-checked checkpoint_dir/index.npz
+    # cache > IndexBuilder on the device
+    x, _sup, _sub = hierarchical_mixture(cfg.n_points, cfg.dim, seed=cfg.seed)
+    ckdir = cfg.checkpoint_dir
+
+    resume = bool(args.resume and ckdir and latest_step(ckdir) is not None)
+    if resume:
+        meta = load_metadata(ckdir)
+        print(f"resume: epoch {int(meta['epoch']) + 1} (ckpt step {meta['epoch']})", flush=True)
+
+    class Progress(FitCallbacks):
+        wants_embedding = False
+
+        def on_epoch_start(self, ev):
+            if ev.epoch == args.fail_at_epoch:
+                print(f"CRASH INJECTION at epoch {ev.epoch}", flush=True)
+                os._exit(17)
+
+        def on_epoch_end(self, ev):
+            print(f"epoch {ev.epoch:4d} loss {ev.loss:.5f} ({ev.time_s:.2f}s)", flush=True)
+
+        def on_checkpoint(self, ev):
+            print(f"checkpoint: epoch {ev.epoch} → {ev.directory}", flush=True)
+
+    res = NomadProjection(cfg, device=device).fit(x, callbacks=Progress(), resume=resume)
+    print(
+        f"index: {res.index_build_strategy}"
+        + (f" build in {res.index_build_s:.1f}s" if res.index_build_s else ""),
+        flush=True,
+    )
+    print("stages " + json.dumps(res.stage_s), flush=True)
+
+    emb = res.embedding
+    if args.out:
+        import numpy as np
+
+        np.save(args.out, emb)
+        print("embedding →", args.out, flush=True)
+    if args.metrics:
+        from repro_torch.metrics import neighborhood_preservation, random_triplet_accuracy
+
+        np10 = neighborhood_preservation(x, emb, k=10, n_queries=min(1000, cfg.n_points), device=device)
+        rta = random_triplet_accuracy(x, emb, 10_000)
+        print(f"NP@10={np10:.4f} triplet={rta:.4f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

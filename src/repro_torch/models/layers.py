@@ -104,7 +104,11 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: to
 
 def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
     """``(N(0, 1) * scale).astype(dtype)``, drawn in float32 on the
-    generator's device, as the reference draws and casts."""
+    generator's device, as the reference draws and casts. On the meta
+    device (``lm.abstract_params``) nothing is drawn: an empty tensor of
+    the shape and dtype."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
 
 

@@ -262,6 +262,19 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator) -> LM:
     return LM(cfg, final_ln=_ones(gen, (cfg.d_model,), dt), **kw)
 
 
+class _MetaDraws:
+    """Stands in for a generator on the meta device, which torch has none
+    of: the init functions read its ``device`` and draw nothing there."""
+
+    device = torch.device("meta")
+
+
+def abstract_params(cfg: ArchConfig) -> LM:
+    """The model of :func:`init_params` on the meta device: every weight
+    with its shape and dtype, nothing allocated (the dry run's input)."""
+    return init_params(cfg, generator=_MetaDraws())
+
+
 def n_params(params: LM) -> int:
     """The model's parameter count, as allocated."""
     return sum(p.numel() for p in params.parameters())

@@ -180,13 +180,15 @@ def moe_sort(p: MoEParams, x: torch.Tensor, cfg):
     gate = gate * keep.to(gate.dtype)
 
     # kept (token, choice) assignments own distinct slots: a plain index
-    # write, no duplicates, so the fill is deterministic
+    # write, no duplicates, so the fill is deterministic. Dropped choices
+    # write to one spare slot past the end, cut off after: the write's
+    # shape does not depend on the routing (it runs on meta tensors too)
     slot = idx * C + pos_tok  # (T, k), meaningful where keep
-    tok_ids = torch.arange(T, device=x.device)[:, None].expand(T, k)
-    slot_to_tok = torch.zeros(E * C, dtype=torch.int64, device=x.device)
-    slot_filled = torch.zeros(E * C, dtype=torch.bool, device=x.device)
-    slot_to_tok[slot[keep]] = tok_ids[keep]
-    slot_filled[slot[keep]] = True
+    dest = torch.where(keep, slot, E * C).reshape(-1)
+    tok_ids = torch.arange(T, device=x.device)[:, None].expand(T, k).reshape(-1)
+    slot_to_tok = torch.zeros(E * C + 1, dtype=torch.int64, device=x.device).index_put_((dest,), tok_ids)[: E * C]
+    slot_filled = torch.zeros(E * C + 1, dtype=torch.bool, device=x.device).index_put_(
+        (dest,), torch.ones((), dtype=torch.bool, device=x.device))[: E * C]
 
     xe = x_flat[slot_to_tok.reshape(E, C)] * slot_filled.reshape(E, C, 1).to(x.dtype)  # (E, C, D)
     ye = _experts(xe, p).reshape(E * C, D)
@@ -209,7 +211,9 @@ def load_balance_loss(probs: torch.Tensor, expert_of: torch.Tensor, n_experts: i
     """Switch-style auxiliary loss: E * Σ_e f_e · P_e. The gradient reaches
     the router through P alone: f is a count (the reference stops its
     gradient)."""
-    f = torch.bincount(expert_of.reshape(-1), minlength=n_experts).float() / max(expert_of.numel(), 1)
+    e = expert_of.reshape(-1)
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=e.device).index_add_(0, e, torch.ones_like(e))
+    f = counts.float() / max(expert_of.numel(), 1)
     P = probs.mean(0)
     return n_experts * torch.sum(f * P)
 

@@ -9,15 +9,16 @@ Batch conventions (as the reference's; labels are pre-shifted targets):
 A batch's arrays may be numpy arrays or tensors; they go to the model's
 device. Prefill and decode take no labels.
 
-The ``jax.eval_shape`` dry-run helpers (``batch_specs``, ``cache_specs``,
-``input_specs``) are not ported yet.
+The dry run's input specs (``batch_specs``, ``cache_specs``,
+``input_specs``) are the reference's ``jax.eval_shape`` structures as meta
+tensors: the same keys, shapes and dtypes, nothing allocated.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import lm
 from repro_torch.models.layers import dtype_of, rms_norm
 
@@ -160,3 +161,60 @@ def make_decode_step(cfg: ArchConfig):
         return lm.decode_step(params, cfg, cache, token)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Input specs (dry run): meta tensors
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig, *, with_labels: bool, microbatched: bool = False) -> dict:
+    """The batch of a shape cell as meta tensors, in the reference's keys;
+    ``microbatched`` train batches lead with ``accum_steps``."""
+    B, S = shape.global_batch, shape.seq_len
+    cd = dtype_of(cfg.compute_dtype)
+    lead: tuple = ()
+    if microbatched and shape.kind == "train" and cfg.accum_steps > 1:
+        if B % cfg.accum_steps:
+            raise ValueError(f"global batch {B} does not split into {cfg.accum_steps} microbatches")
+        lead = (cfg.accum_steps,)
+        B = B // cfg.accum_steps
+    spec: dict = {}
+    if cfg.family == "audio":
+        spec["embeds"] = _meta(lead + (B, S, cfg.d_model), cd)
+    elif cfg.family == "vlm":
+        P = cfg.n_vision_patches
+        spec["tokens"] = _meta(lead + (B, S - P), torch.int32)
+        spec["patches"] = _meta(lead + (B, P, cfg.d_model), cd)
+    else:
+        spec["tokens"] = _meta(lead + (B, S), torch.int32)
+    if with_labels:
+        lab_len = S - cfg.n_vision_patches if cfg.family == "vlm" else S
+        spec["labels"] = _meta(lead + (B, lab_len), torch.int32)
+    return spec
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """The decode cache of a shape cell on the meta device (``idx`` a
+    Python int, as the port keeps it)."""
+    return lm.init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, optimizer=None) -> tuple:
+    """The step's positional arguments as meta tensors: ``(params,
+    opt_state, batch)`` for train (``optimizer.init`` of the meta weights,
+    microbatched), ``(params, batch)`` for prefill and ``(params, cache,
+    token)`` for decode."""
+    params = lm.abstract_params(cfg)
+    if shape.kind == "train":
+        if optimizer is None:
+            raise ValueError("a train cell's specs need the optimizer")
+        opt_state = optimizer.init(list(params.parameters()))
+        return params, opt_state, batch_specs(cfg, shape, with_labels=True, microbatched=True)
+    if shape.kind == "prefill":
+        return params, batch_specs(cfg, shape, with_labels=False)
+    return params, cache_specs(cfg, shape), _meta((shape.global_batch, 1), torch.int32)

@@ -25,7 +25,7 @@ from repro_torch.service import cache as cache_mod
 from repro_torch.service.batcher import BatcherClosed
 from repro_torch.service.cache import ResultCache
 from repro_torch.service.metrics import ServiceMetrics
-from repro_torch.service.registry import MapRegistry
+from repro_torch.service.registry import MapHandle, MapRegistry
 
 # a request that raced a retire re-resolves the active map this many times
 SWAP_RETRIES = 8
@@ -246,3 +246,9 @@ class MapService:
 
     def close(self) -> None:
         self.registry.close()
+
+
+def handle_for(service: MapService, version: Optional[str] = None) -> MapHandle:
+    """The registry's handle of ``version`` (the active map by default):
+    ``service.registry.get(version)``."""
+    return service.registry.get(version)

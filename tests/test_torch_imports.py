@@ -35,6 +35,15 @@ def test_import_loads_no_jax_and_no_repro():
         "from repro_torch.models.lm import trainable\n"
         "from repro_torch.optim import SGD, QTensor, quantize_int8, dequantize_int8\n"
         "from repro_torch.data.loader import TokenStream, stream_seed\n"
+        "import repro_torch.launch.train, repro_torch.launch.dryrun, repro_torch.roofline\n"
+        "from repro_torch.roofline.op_cost import analyze_ops, memory_analysis\n"
+        "from repro_torch.roofline.analysis import HW_H100, nomad_analytic_terms\n"
+        "from repro_torch.core import cauchy_pairwise\n"
+        "from repro_torch.data import hierarchical_mixture, swiss_roll\n"
+        "from repro_torch.index import build_index, kmeans_fit, capacity_assign\n"
+        "from repro_torch.service.core import handle_for\n"
+        "from repro_torch.models.lm import abstract_params\n"
+        "from repro_torch.models.steps import batch_specs, cache_specs, input_specs\n"
         "from repro_torch.kernels import registry\n"
         "registry.names()  # imports every kernel module\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
