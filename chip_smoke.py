@@ -1142,7 +1142,7 @@ def async_checkpoints(device, cfg, x, fit, ckdir) -> dict:
     finally:
         ck_mod.Checkpointer = writer
     a, b = read_checkpoints(ckdir), read_checkpoints(sync_dir)
-    if made != [{"keep": 3, "async_save": True}] or not a or not same_checkpoints(a, b):
+    if made != [{"n_shards": 1, "keep": 3, "async_save": True, "primary": True}] or not a or not same_checkpoints(a, b):
         raise AssertionError(f"async vs sync checkpoints differ (writer arguments {made}, steps {sorted(a)} / "
                              f"{sorted(b)})")
     stop_at = fit.checkpoint_epochs[len(fit.checkpoint_epochs) // 2]
@@ -2838,9 +2838,10 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 6  # untimed then timed Phi-4-mini steps
 TRAIN_MAMBA_STEPS = 3
 # Mamba-2's train step is host-bound (on an NVIDIA H100 80GB HBM3, 700 W:
 # ~42-64 s at its 64 layers, the card ~25-34% busy: the SSD scan's chunk
-# loop a microbatch); a quarter of the depth keeps the script inside its
-# 1,200 s (1,044 s there with all 64 layers)
-TRAIN_MAMBA_LAYERS = 16
+# loop a microbatch); an eighth of the depth keeps the script inside its
+# 1,200 s (1,044 s there with all 64 layers; ~1,065 s on a slow host with
+# 16 layers once the sharded phase joined)
+TRAIN_MAMBA_LAYERS = 8
 # warmup_cosine(lr0, warmup, total), chosen for this check. Adam's first
 # steps move every weight by ~lr in its gradient's sign, so a layer's output
 # moves by ~3072 · lr · |x| against its ~|x|: at lr0 6e-4 (step 1 at 3e-4)
@@ -3290,24 +3291,23 @@ LAUNCH_REDUCED = [
 DRYRUN_FLOP_REL = 0.05  # the op counter's matrix-product FLOPs against train_flops' hardware count
 
 
-def _launcher(argv, *, in_process: bool):
-    """One run of ``python -m repro_torch.launch.train argv``: (return code,
-    stdout, wall s, the fit's stage times). In process through
-    ``launch.train.main`` (stdout captured), else a child process."""
+def _launcher(argv, *, in_process: bool, module: str = "repro_torch.launch.train"):
+    """One run of ``python -m <module> argv``: (return code, stdout, wall
+    s, the fit's stage times). In process through the module's ``main``
+    (stdout captured), else a child process."""
     import contextlib
+    import importlib
     import io
-
-    from repro_torch.launch import train as launch_train
 
     t0 = time.perf_counter()
     if in_process:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = launch_train.main(argv)
+            rc = importlib.import_module(module).main(argv)
         text = buf.getvalue()
     else:
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv], capture_output=True,
+        r = subprocess.run([sys.executable, "-m", module, *argv], capture_output=True,
                            text=True, timeout=900, env=env, cwd=ROOT)
         rc, text = r.returncode, r.stdout + r.stderr[-4000:]
     wall = time.perf_counter() - t0
@@ -3417,6 +3417,227 @@ def launch_path(device) -> dict:
         del xd, plain, d_k2, d_plain
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sharded path: the multi-GPU NOMAD side on shard slots of one card
+# ---------------------------------------------------------------------------
+
+SHARDED_SLOTS = 4
+SHARDED_Q = 8_192  # queries served on the 4-slot map: 2 batches of 4 × serve_microbatch
+SHARDED_ASSIGN_MIN = 0.99  # the 4-slot build ≡ the local assignment on its centroids (the repo's rule)
+SHARDED_K1_SLOTS = (2, 3)  # K1 checked at flat slot 2 (own cells at 2,048) and 2×2 slot 3 (pod 1, own at 1,024)
+SHARDED_REDUCED = LAUNCH_REDUCED + [
+    f"{SHARDED_SLOTS} shard slots on one card (the slots run one after another; the mean and bid "
+    "exchanges cross no wire); NCCL at world size 1, since NCCL takes one process a card",
+]
+
+
+def check_sharded_k1(device, cfg, fit, strategy, shard: int) -> dict:
+    """K1 against its plain version at one shard slot's step, on the inputs
+    the sharded epoch gives it there: ``strategy`` (sharded or
+    hierarchical, over the phase's mesh) prepares the blocks of the fit's
+    θ, every block's cell means go through ``cell_exchange`` as at a
+    refresh, and slot ``shard`` draws step 0 of epoch 0 with its own key.
+    That step runs once through ``step_update`` on a copy of the slot's
+    block while ``losses.nomad_step_term`` records its arguments: the
+    exchanged means and weights, and the own cells at ``cl + own_base``.
+    The kernel and its plain version then run on exactly those arguments,
+    within K1's tolerance (scaled at R ≥ 4096 means, as on the fit's
+    data); a disagreement is fatal."""
+    import torch
+
+    from repro_torch.core import losses
+    from repro_torch.core.distributed import cell_exchange, step_key
+    from repro_torch.core.nomad import local_means, sample_step_rows, step_update
+    from repro_torch.index.build import seeded_generator
+    from repro_torch.kernels.nomad_step import ops as k1
+
+    index, C = fit.index, cfg.cluster_capacity
+    rows = np.zeros((index.n_clusters * C, fit.embedding.shape[1]), np.float32)
+    rows[index.perm] = fit.embedding
+    theta = strategy.prepare(cfg, "nomad", index, rows, device)
+    scfg, idx, n = strategy.cfg, strategy.idx, strategy.n_shards
+    n_pods = strategy.mesh.shape[strategy.pod_axis] if strategy.pod_axis else 1
+    means = [local_means(theta[s], idx[s]["counts"], C) for s in range(n)]
+    cell_means, cell_w, own_base = cell_exchange(
+        means, strategy.counts_global[shard], shard, n_noise=scfg.n_noise, n_total=scfg.n_points, n_pods=n_pods,
+        hierarchical=scfg.hierarchical and strategy.pod_axis is not None)
+    gen = seeded_generator(device, *step_key(scfg, 0, shard, 0, n))
+    r, cl, neg = sample_step_rows(gen, idx[shard], scfg, "nomad")
+    seen, real = [], losses.nomad_step_term
+
+    def record(*a):
+        seen.append([t.detach() for t in a])
+        return real(*a)
+
+    losses.nomad_step_term = record
+    try:
+        step_update(theta[shard].clone(), idx[shard], cell_means, idx[shard]["counts"], 1.0, r, cl, neg, cfg=scfg,
+                    cell_w=cell_w, own_base=own_base)
+    finally:
+        losses.nomad_step_term = real
+    got = seen[0]  # cast as nomad_step_fused casts them
+    args = tuple(t.float().contiguous() for t in got[:7]) + (got[7].to(torch.int32).contiguous(),)
+    B, R = args[0].shape[0], args[5].shape[0]
+    if not (torch.equal(args[5], cell_means) and torch.equal(args[6], cell_w)
+            and torch.equal(got[7], cl + own_base)):
+        raise AssertionError(f"slot {shard}'s step did not take its exchange's means, weights and own cells")
+    shape = (B, args[1].shape[1], args[3].shape[1], R, args[0].shape[1])
+    errs = _check_pair(f"nomad_step at {strategy.name} slot {shard}, {shape}",
+                       nomad_pair(args, torch.full((B,), 1.0 / B, device=device)), k1.TOL, R >= 4096)
+    return {"slot": shard, "shape": shape, "means": R, "own_base": own_base, "plan": k1.plan(R),
+            "max_abs_err": errs}
+
+
+def sharded_path(device) -> dict:
+    """The multi-GPU NOMAD side on ``SHARDED_SLOTS`` shard slots of one
+    card, at PubMed's widths on the launch phase's data
+    (``SHARDED_REDUCED``). The phase's main path, counted: the 4-slot build
+    (counts ≤ C, no kNN edge leaves its slot, its assignment ≡ the local
+    one on its centroids on ≥ ``SHARDED_ASSIGN_MIN`` of rows), the 4-slot
+    flat fit on that index (finite, loss falls, a rerun bit-equal) and
+    4-slot serving of ``SHARDED_Q`` queries (≡ local serving bit for bit).
+    Beside it: 1 slot ≡ the local fit bit for bit; the 2×2 hierarchical fit
+    (finite, loss falls); ``python -m repro_torch.launch.distributed
+    --num-processes 1 --host-devices 4`` under NCCL ≡ the in-process
+    build and fit bit for bit; every kernel against its plain version on
+    the phase's data, and K1 also at the inputs of a flat slot and a 2×2
+    slot (``check_sharded_k1``, ``SHARDED_K1_SLOTS``)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_nomad
+    from repro_torch.core.distributed import shard_index_arrays
+    from repro_torch.core.nomad import NomadProjection
+    from repro_torch.core.strategy import HierarchicalStrategy, ShardedStrategy
+    from repro_torch.data.synthetic import hierarchical_mixture
+    from repro_torch.index.build import IndexBuilder, capacity_assign_device
+    from repro_torch.kernels import registry
+    from repro_torch.launch.mesh import flat_mesh, make_mesh
+    from repro_torch.serve import FrozenMap, MapServer
+
+    t_phase = time.perf_counter()
+    work = os.path.join(OUT_DIR, "sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = get_nomad(LAUNCH_WORKLOAD).replace(n_points=LAUNCH_N, n_epochs=LAUNCH_EPOCHS)
+    x, _sup, _sub = hierarchical_mixture(cfg.n_points, cfg.dim, seed=cfg.seed)
+    q = hierarchical_mixture(SHARDED_Q, cfg.dim, seed=cfg.seed + 1)[0]
+    flat, pods = flat_mesh("data", [device] * SHARDED_SLOTS), make_mesh((2, 2), ("pod", "data"), [device] * 4)
+    C = cfg.cluster_capacity
+    out = {"reduced": SHARDED_REDUCED, "slots": SHARDED_SLOTS, "walls_s": {}}
+    walls = out["walls_s"]
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize(device)
+        walls[label] = time.perf_counter() - t0
+        return r
+
+    try:
+        # the phase's main path, its launches counted
+        registry.reset_launch_counts()
+        builder = IndexBuilder(cfg, strategy="sharded", mesh=flat, device=device)
+        index = timed("build_4", lambda: builder.build(x))
+        fit4 = timed("fit_4", lambda: NomadProjection(cfg, strategy="sharded", mesh=flat, device=device).fit(
+            x, index=index))
+        frozen = FrozenMap.from_fit(fit4, cfg, device=device)
+        served = timed("serve_4", lambda: MapServer(frozen, strategy="sharded", mesh=flat).transform(q, seed=5))
+        out["launches"] = registry.launch_counts()
+        missing = [n for n in FIT_KERNELS + SERVE_KERNELS[2:] if out["launches"][n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the sharded path: {missing}")
+
+        # the build
+        out["build"] = {"stage_s": builder.report.stage_s, "n_shards": builder.report.n_shards,
+                        "stragglers": builder.report.stragglers, "max_count": int(index.counts.max()), "capacity": C}
+        shard_index_arrays(index, SHARDED_SLOTS)  # raises on an edge that leaves its slot
+        if not (builder.report.n_shards == SHARDED_SLOTS and int(index.counts.max()) <= C
+                and int(index.counts.sum()) == cfg.n_points):
+            raise AssertionError(f"the 4-slot build: {out['build']}")
+        same = timed("assign_local", lambda: capacity_assign_device(
+            x, index.centroids, C, device=device, block=cfg.build_block_rows, max_rounds=cfg.build_max_rounds,
+            n_cand=cfg.build_candidates))
+        out["build"]["assign_equals_local"] = float(np.mean(same == index.perm // C))
+        if out["build"]["assign_equals_local"] < SHARDED_ASSIGN_MIN:
+            raise AssertionError(f"the 4-slot build's assignment ≡ local on {out['build']['assign_equals_local']}")
+
+        # the fits
+        def check_fit(label, res):
+            emb = res.embedding
+            ok = emb.shape == (cfg.n_points, 2) and bool(np.isfinite(emb).all()) and res.losses[-1] < res.losses[0]
+            out[label] = {"losses": res.losses, "epoch_s": res.epoch_times, "stage_s": res.stage_s,
+                          "strategy": res.strategy, "n_shards": res.n_shards, "mesh_shape": res.mesh_shape}
+            if not ok:
+                raise AssertionError(f"{label}: finite {bool(np.isfinite(emb).all())}, losses {res.losses}")
+
+        check_fit("fit_4", fit4)
+        again = timed("fit_4_rerun", lambda: NomadProjection(cfg, strategy="sharded", mesh=flat, device=device).fit(
+            x, index=index))
+        out["fit_4"]["rerun_bit_equal"] = bool(np.array_equal(again.embedding, fit4.embedding))
+        if not out["fit_4"]["rerun_bit_equal"]:
+            raise AssertionError("two 4-slot fits from one seed and index differ")
+        registry.reset_launch_counts()
+        hier = timed("fit_2x2", lambda: NomadProjection(cfg, strategy="hierarchical", mesh=pods, device=device).fit(
+            x, index=index))
+        out["launches_2x2"] = registry.launch_counts()
+        check_fit("fit_2x2", hier)
+        if not (out["launches_2x2"]["nomad_step_fwd"] and out["launches_2x2"]["nomad_step_bwd"]):
+            raise AssertionError(f"the 2x2 fit launched {out['launches_2x2']}")
+        local = timed("fit_local", lambda: NomadProjection(cfg, strategy="local", device=device).fit(x, index=index))
+        one = timed("fit_1", lambda: NomadProjection(cfg, strategy="sharded", mesh=flat_mesh("data", [device]),
+                                                     device=device).fit(x, index=index))
+        out["one_slot_equals_local"] = bool(np.array_equal(one.embedding, local.embedding)
+                                            and one.losses == local.losses)
+        if not out["one_slot_equals_local"]:
+            raise AssertionError(f"1 slot ≢ local: losses {one.losses} vs {local.losses}")
+
+        # serving
+        want = timed("serve_local", lambda: MapServer(frozen).transform(q, seed=5))
+        out["serve_4"] = {"queries": SHARDED_Q, "batch_rows": SHARDED_SLOTS * cfg.serve_microbatch,
+                          "p50_batch_s": served.p50_latency_s, "batch_latency_s": served.batch_latency_s}
+        out["serve_4"]["equals_local"] = all(np.array_equal(getattr(served, f), getattr(want, f)) for f in (
+            "embedding", "cells", "neighbor_ids", "neighbor_dists"))
+        if not (out["serve_4"]["equals_local"] and np.isfinite(served.embedding).all()):
+            raise AssertionError("4-slot serving ≢ local serving")
+
+        # the launcher under NCCL, one process of 4 slots
+        emb_path, idx_path = os.path.join(work, "emb.npy"), os.path.join(work, "index.npz")
+        rc, text, wall, stages = _launcher(
+            ["--workload", LAUNCH_WORKLOAD, "--n-points", str(LAUNCH_N), "--epochs", str(LAUNCH_EPOCHS),
+             "--num-processes", "1", "--host-devices", str(SHARDED_SLOTS), "--out", emb_path, "--dump-index",
+             idx_path], in_process=False, module="repro_torch.launch.distributed")
+        walls["launcher_child"] = wall
+        fit_line = [ln for ln in text.splitlines() if ln.startswith("fit: ")]
+        out["launcher"] = {"rc": rc, "fit_line": fit_line, "stage_s": stages}
+        if rc != 0 or not fit_line or "processes=1" not in fit_line[0] or "backend=nccl" not in fit_line[0]:
+            raise AssertionError(f"the NCCL launcher returned {rc}:\n{text[-3000:]}")
+        got = np.load(idx_path)
+        same_idx = {k: bool(np.array_equal(got[k], getattr(index, k))) for k in (
+            "knn_idx", "knn_w", "counts", "centroids", "perm")}
+        out["launcher"]["index_equals_in_process"] = same_idx
+        out["launcher"]["embedding_equals_in_process"] = bool(np.array_equal(np.load(emb_path), fit4.embedding))
+        if not (all(same_idx.values()) and out["launcher"]["embedding_equals_in_process"]):
+            raise AssertionError(f"the NCCL launcher ≢ the in-process 4-slot build and fit: {same_idx}")
+
+        # every kernel against its plain version on the phase's data
+        xd = torch.from_numpy(x).to(device)
+        qd = torch.from_numpy(q).to(device)
+        out["kernels"] = check_path_kernels(device, fit4, frozen, xd, qd, served.embedding, random=False)
+        del xd, qd
+        # K1 at the slots' own inputs: a flat slot past the first (own cells
+        # at 2·K/4) and a 2×2 slot of the second pod (R = K/2 + 2 means)
+        out["k1_slots"] = {
+            "flat": check_sharded_k1(device, cfg, fit4, ShardedStrategy(mesh=flat), SHARDED_K1_SLOTS[0]),
+            "2x2": check_sharded_k1(device, cfg, hier, HierarchicalStrategy(mesh=pods), SHARDED_K1_SLOTS[1])}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -3860,6 +4081,9 @@ def main() -> int:
     print(json.dumps({"train_path": train_summary(train)}, default=str), flush=True)
     launch = launch_path(device)
     print(json.dumps({"launch_path": launch}, default=str), flush=True)
+    sharded = sharded_path(device)
+    print(json.dumps({"sharded_path": {k: v for k, v in sharded.items() if k != "kernels"},
+                      "card": card}, default=str), flush=True)
     dryrun = dryrun_check(train, decode)
     print(json.dumps({"dryrun_check": {"phase_s": dryrun["phase_s"], "flop_rel": dryrun["train"]["flop_rel"],
                                        "memory_ratio": dryrun["train"]["memory_ratio"]}}), flush=True)
@@ -3886,7 +4110,7 @@ def main() -> int:
                                  "stream": stream["stream"]["launches"][name],
                                  "service": service["launches"][name], "pipeline": pipeline["launches"][name],
                                  "decode": decode["launches"][name], "train": train["launches"][name],
-                                 "launch": launch["launches"][name]},
+                                 "launch": launch["launches"][name], "sharded": sharded["launches"][name]},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
@@ -3909,7 +4133,7 @@ def main() -> int:
     record = {"card": card, "build_s": build_s, "checks": checks, "timing": timing,
               "main_path": main_res, "small_quality": quality, "serve_path": serve, "partial_path": partial,
               "service_path": service, "pipeline_path": pipeline, "decode_path": decode, "train_path": train,
-              "launch_path": launch, "dryrun_check": dryrun, "stream_path": stream,
+              "launch_path": launch, "sharded_path": sharded, "dryrun_check": dryrun, "stream_path": stream,
               "checkpoint_roundtrip": ckpt, "partial_small": small_partial,
               "tpu_kernels": table, "kernels": kernels}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

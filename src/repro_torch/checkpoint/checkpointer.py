@@ -18,8 +18,12 @@ other's.
 * ``keep`` bounds the checkpoints retained (the oldest pruned after each
   commit).
 
-``primary`` and ``n_shards`` keep the reference's single-process meaning;
-the multi-process writer waits for multi-GPU.
+Several processes (``torch.distributed``): the fit passes ``primary`` =
+"this is process 0", so only rank 0 writes, synchronously, and every
+process waits on the commit (a barrier after each ``save``); every process
+restores from the shared directory. ``n_shards`` is the fit's slot count,
+and restore does not depend on it, so a checkpoint written by P processes
+resumes under any other process count (or strategy) with its rows.
 """
 
 from __future__ import annotations

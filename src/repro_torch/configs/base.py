@@ -12,14 +12,13 @@
   config is therefore accepted by the JAX config's constructor, which is
   how the tests build both frameworks from one set of values.
 
-The port runs the local fit (``strategy`` "auto"/"local",
-``build_strategy`` "auto"/"local") from memory or streamed from an on-disk
-store (``chunk_rows``, ``store_dtype``, ``store_max_shards``), its
-checkpoints (``checkpoint_dir``, ``checkpoint_every_epochs``) and local
-serving (``serve_strategy`` "auto"/"local" and the other serve fields).
-The remaining fields are kept so later slices (streaming, multi-GPU, the
-service layer, incremental maps) read the same configuration; the entry
-points raise for values they do not run yet. :meth:`NomadConfig.from_stored`
+The port runs the fit on one device or sharded over shard slots
+(``strategy``, ``hierarchical``, ``build_strategy``), from memory or
+streamed from an on-disk store (``chunk_rows``, ``store_dtype``,
+``store_max_shards``), its checkpoints (``checkpoint_dir``,
+``checkpoint_every_epochs``) and serving (``serve_strategy`` and the other
+serve fields). ``n_cluster_groups`` is kept so both packages read the same
+configuration; no entry point of either reads it. :meth:`NomadConfig.from_stored`
 reads a config a checkpoint stored, the JAX package's included.
 """
 
@@ -269,7 +268,7 @@ class NomadConfig:
 
     # estimator (repro_torch.core.nomad.NomadProjection)
     method: str = "nomad"  # "nomad" (Eq. 3) | "infonc" (Eq. 2 baseline)
-    strategy: str = "auto"  # "auto" | "local" (others: not ported yet)
+    strategy: str = "auto"  # "auto" | "local" | "sharded" | "hierarchical"
 
     # ANN index (paper §3.2): LSH-initialised K-means, exact kNN in-cluster
     n_clusters: int = 64
@@ -279,7 +278,7 @@ class NomadConfig:
     n_neighbors: int = 15  # k of the kNN graph
 
     # index-build execution (repro_torch.index.build.IndexBuilder)
-    build_strategy: str = "auto"  # "auto" | "local" (others: not ported yet)
+    build_strategy: str = "auto"  # "auto" | "local" | "sharded" | "distributed"
     build_block_rows: int = 16384  # row block of the E-step / candidate pass
     build_max_rounds: int = 16  # bidding rounds before host fallback
     build_candidates: int = 32  # nearest-centroid candidates cached per row
@@ -305,23 +304,23 @@ class NomadConfig:
     init_scale: float = 1e-4  # per-dim std of the initial projection
     seed: int = 0
 
-    # distribution (not ported yet beyond mean_refresh_steps)
+    # distribution (core/strategy.py, core/distributed.py)
     mean_refresh_steps: int = 0  # 0 => once per epoch (paper); else every T steps
     hierarchical: bool = False
     n_cluster_groups: int = 0
 
-    # out-of-sample serving (repro_torch.serve; "sharded" not ported yet)
+    # out-of-sample serving (repro_torch.serve)
     serve_strategy: str = "auto"
     serve_microbatch: int = 1024
     serve_knn_block: int = 256
     transform_steps: int = 24
     transform_lr: float = 0.0
 
-    # HTTP service front end (not ported yet)
+    # HTTP service front end (repro_torch.service)
     service_max_delay_s: float = 0.005
     service_cache_entries: int = 1024
 
-    # incremental growth (not ported yet)
+    # incremental growth (NomadProjection.partial_fit)
     partial_refine_epochs: int = 3
 
     # fault tolerance (repro_torch.checkpoint)

@@ -75,18 +75,27 @@ def nomad_loss(
     theta_neg,  # (B, S, d) samples drawn uniformly from the head's own cell
     n_noise: int,  # |M|
     n_total: int,  # N
+    *,
+    cell_w=None,  # (R,) weights of the R means; default |M|·counts/N
+    own_base: int = 0,  # row of cell 0 of ``counts`` among the means
 ):
     """Eq. 3 with R̃ = all cells except the head's own (the paper's default).
 
     M̃  = |M| Σ_{r≠c(i)} (|r|/N) q(i, μ_r)      — means, no gradient
     M   = |M| (|c(i)|/N) mean_s q(i, m_s)      — exact in-cell samples
+
+    A shard of a sharded fit passes the means and weights of its exchange
+    (``cell_w``) and where its own cells sit among them (``own_base``);
+    ``counts`` and ``cell_of_i`` are then its own cells'.
     """
     B, S, _ = theta_neg.shape
     p_cell = counts.float() / float(n_total)  # (K,)
-    cell_w = float(n_noise) * p_cell
+    if cell_w is None:
+        cell_w = float(n_noise) * p_cell
     p_own = p_cell[cell_of_i]  # (B,)
     neg_w = (float(n_noise) * p_own / S)[:, None].expand(B, S)
+    own = cell_of_i + own_base if own_base else cell_of_i
     per_head = nomad_step_term(
-        theta_i, theta_pos, pos_w, theta_neg, neg_w, means.detach(), cell_w, cell_of_i
+        theta_i, theta_pos, pos_w, theta_neg, neg_w, means.detach(), cell_w, own
     )
     return torch.mean(per_head)

@@ -1,4 +1,6 @@
-"""NOMAD Projection front end (paper §3, end to end), local fit on one device.
+"""NOMAD Projection front end (paper §3, end to end), on one device or
+sharded over a mesh of shard slots (``core/strategy.py``,
+``core/distributed.py``).
 
 Method selection:
 * ``"nomad"``  — Eq. 3: remote cells via means (M̃), own cell sampled (M).
@@ -39,8 +41,9 @@ import torch
 from repro_torch.configs.base import NomadConfig
 from repro_torch.core import losses
 from repro_torch.core.pca import pca_init, pca_init_streamed
+from repro_torch.core.runtime import process_count, process_index, resolve_device
 from repro_torch.index.ann import AnnIndex, data_fingerprint, index_cache_path, load_index, save_index
-from repro_torch.index.build import IndexBuilder, resolve_device, rss_mb, seeded_generator, synchronize
+from repro_torch.index.build import IndexBuilder, rss_mb, seeded_generator, synchronize
 
 # ---------------------------------------------------------------------------
 # Sampling helpers (cluster-major layout)
@@ -89,9 +92,12 @@ def sample_step_rows(gen: torch.Generator, idx: dict, cfg: NomadConfig, method: 
     return rows, cl, sample_in_cluster(gen, cl, idx["counts"], C, cfg.n_exact_negatives)
 
 
-def step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, *, cfg, method="nomad", n_total=None):
+def step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, *, cfg, method="nomad", n_total=None,
+                cell_w=None, own_base: int = 0):
     """One sparse SGD step on the given rows; updates ``theta`` in place
     (only the touched rows move) and returns the batch-mean loss.
+    ``cell_w``/``own_base``: a shard's exchanged weights and the row of its
+    first cell among ``means`` (``core/distributed.py``).
 
     The three scatters sum duplicate rows in the JAX package's order
     (heads, then positives, then negatives) with ``index_put_(accumulate=
@@ -109,7 +115,7 @@ def step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, *, cfg, met
     else:
         loss = losses.nomad_loss(
             th_i, th_pos, pos_w, means, counts_f, cl, th_neg,
-            n_noise=cfg.n_noise, n_total=n_total,
+            n_noise=cfg.n_noise, n_total=n_total, cell_w=cell_w, own_base=own_base,
         )
     g_i, g_pos, g_neg = torch.autograd.grad(loss, (th_i, th_pos, th_neg))
     d = theta.shape[1]
@@ -174,7 +180,10 @@ class FitResult:
     epoch_times: list
     strategy: str = "local"
     n_shards: int = 1
-    # "local" (IndexBuilder ran) | "provided" (index= argument)
+    mesh_shape: Optional[tuple] = None
+    mesh_axes: Optional[tuple] = None
+    # "local" | "streamed" | "sharded" | "distributed" (IndexBuilder ran),
+    # "cache" (checkpoint_dir/index.npz) or "provided" (index= argument)
     index_build_strategy: str = ""
     index_build_s: float = 0.0
     index_build_stragglers: int = 0
@@ -190,6 +199,9 @@ class FitResult:
     resumed: bool = False
     checkpoint_dir: str = ""
     checkpoint_epochs: list = dataclasses.field(default_factory=list)
+    # multi-process provenance (torch.distributed; 1 and 0 in one process)
+    process_count: int = 1
+    process_index: int = 0
 
 
 @dataclasses.dataclass
@@ -301,20 +313,30 @@ class NomadProjection:
     ``transform(q)``.
 
     Runs on ``cuda`` unless ``device="cpu"`` is passed; with no card and no
-    device named it raises rather than fall back to the CPU. The port runs
-    the local strategy on an in-memory array or streamed from an on-disk
-    store (a store, a memmap, a ``.npy`` path or a store directory). With
+    device named it raises rather than fall back to the CPU. ``strategy``
+    (default ``cfg.strategy``) is ``"auto"``, ``"local"``, ``"sharded"``,
+    ``"hierarchical"`` or a strategy instance (``core/strategy.py``);
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh` of shard slots),
+    ``shard_axes`` and ``pod_axis`` place the sharded ones, and ``mesh``
+    also sizes the index build's slots. The fit takes an in-memory array
+    or streams from an on-disk store (a store, a memmap, a ``.npy`` path or
+    a store directory). Under ``torch.distributed`` every process runs the
+    same fit over one global mesh; process 0 alone writes the index cache
+    and the checkpoints (synchronously, everyone waiting on each). With
     ``cfg.checkpoint_dir`` set, ``from_checkpoint(dir).transform(q)`` serves
     the map without the training array, and ``partial_fit(y)`` grows it by
     appended rows. Progress streams through the event API
     (:class:`repro_torch.core.strategy.FitCallbacks`).
     """
 
-    def __init__(self, cfg: NomadConfig, method: Optional[str] = None, *, device=None):
-        if cfg.strategy not in ("auto", "local"):
-            raise NotImplementedError(f"strategy={cfg.strategy!r}: only the local fit is ported")
+    def __init__(self, cfg: NomadConfig, method: Optional[str] = None, *, strategy=None, mesh=None,
+                 shard_axes=None, pod_axis=None, device=None):
         self.cfg = cfg
         self.method = method or cfg.method
+        self.strategy = strategy if strategy is not None else cfg.strategy
+        self.mesh = mesh
+        self.shard_axes = shard_axes
+        self.pod_axis = pod_axis
         self.device = resolve_device(device)
         self._resume_default = False
         self._fit_result: Optional[FitResult] = None
@@ -363,9 +385,10 @@ class NomadProjection:
             CheckpointEvent,
             EpochEndEvent,
             EpochStartEvent,
-            LocalStrategy,
             MeansRefreshEvent,
             as_callbacks,
+            resolve_strategy,
+            sync_processes,
         )
 
         cfg, device = self.cfg, self.device
@@ -401,16 +424,22 @@ class NomadProjection:
                 )
             else:
                 index, build_strategy = cached, "cache"
+        multiprocess = process_count() > 1
         if index is None:
-            builder = IndexBuilder(cfg, device=device)
+            builder = IndexBuilder(cfg, mesh=self.mesh, device=device)
             index = builder.build(x)
             build_strategy, build_s = builder.report.strategy, builder.report.total_s
             stragglers = builder.report.stragglers
             stage_s.update(builder.report.stage_s)
             stage_rss.update(builder.report.stage_rss_mb)
-        if index_cache and (cache_stale or not os.path.exists(index_cache)):
-            os.makedirs(ckdir, exist_ok=True)
-            save_index(index, index_cache)
+        if index_cache:
+            # every process holds the same index: process 0 alone decides and
+            # writes, and everyone waits on it (a peer deciding by the file
+            # could find it already written and skip the barrier)
+            if process_index() == 0 and (cache_stale or not os.path.exists(index_cache)):
+                os.makedirs(ckdir, exist_ok=True)
+                save_index(index, index_cache)
+            sync_processes("index-cache")
 
         # ---- θ: checkpoint > warm start > fresh init ----------------------
         t_init = time.time()
@@ -432,15 +461,21 @@ class NomadProjection:
                 )
         if theta0 is None:
             theta0 = self._init_theta(x, index)
-        strategy = LocalStrategy()
+        strategy = resolve_strategy(self.strategy, cfg, method=self.method, mesh=self.mesh,
+                                    shard_axes=self.shard_axes, pod_axis=self.pod_axis)
         theta = strategy.prepare(cfg, self.method, index, theta0, device)
         synchronize(device)
         stage_s["init"] = time.time() - t_init
         stage_rss["init"] = rss_mb()
 
         # the writer thread commits epoch e's θ while epoch e + 1 runs; save
-        # takes θ's host copy first, so the in-place epoch cannot reach it
-        ckpt = Checkpointer(ckdir, keep=3, async_save=True) if ckdir else None
+        # takes θ's host copy first, so the in-place epoch cannot reach it.
+        # Several processes: process 0 writes synchronously and everyone
+        # waits on the commit (a writer thread would race the barrier)
+        ckpt = None
+        if ckdir:
+            ckpt = Checkpointer(ckdir, n_shards=strategy.n_shards, keep=3, async_save=not multiprocess,
+                                primary=process_index() == 0)
         every = max(1, cfg.checkpoint_every_epochs)
         t_epochs = time.time()
         lr0 = cfg.resolved_lr0()
@@ -456,6 +491,7 @@ class NomadProjection:
                 losses_.append(mloss)
                 epoch_times.append(time.time() - te)
                 if ckpt is not None and ((e + 1) % every == 0 or e == cfg.n_epochs - 1):
+                    # fetch is collective: every process gathers θ, one writes it
                     ckpt.save(
                         e,
                         {"theta": strategy.fetch(theta)},
@@ -464,10 +500,12 @@ class NomadProjection:
                             "epoch": e,
                             "config": dataclasses.asdict(cfg),
                             "method": self.method,
-                            "strategy": "local",
+                            "strategy": strategy.name,
                             "losses": list(losses_),
                         },
                     )
+                    if multiprocess:
+                        sync_processes(f"ckpt-{e}")
                     checkpoint_epochs.append(e)
                     if events is not None:
                         events.on_checkpoint(CheckpointEvent(e, e, ckdir, strategy.n_shards))
@@ -481,12 +519,18 @@ class NomadProjection:
         stage_s["epochs"] = time.time() - t_epochs
         stage_rss["epochs"] = rss_mb()
 
+        emb = index.unpermute(strategy.fetch(theta))
+        meta = strategy.describe()
         result = FitResult(
-            embedding=index.unpermute(strategy.fetch(theta)),
+            embedding=emb,
             index=index,
             losses=losses_,
             wall_time_s=time.time() - t0,
             epoch_times=epoch_times,
+            strategy=meta["strategy"],
+            n_shards=meta["n_shards"],
+            mesh_shape=meta["mesh_shape"],
+            mesh_axes=meta["mesh_axes"],
             index_build_strategy=build_strategy,
             index_build_s=build_s,
             index_build_stragglers=stragglers,
@@ -497,6 +541,8 @@ class NomadProjection:
             resumed=resumed,
             checkpoint_dir=ckdir,
             checkpoint_epochs=checkpoint_epochs,
+            process_count=meta["process_count"],
+            process_index=meta["process_index"],
         )
         self._fit_result = result
         self._frozen = None  # a refit invalidates any frozen state
@@ -555,8 +601,14 @@ class NomadProjection:
 
         Rows in cells the append never touches keep bit-identical
         positions; appending 0 rows changes nothing and writes nothing.
-        ``seed`` seeds the placement (default ``cfg.seed``).
+        ``seed`` seeds the placement (default ``cfg.seed``). Single-process:
+        grow the map on one process and serve the version anywhere.
         """
+        if process_count() > 1:
+            raise RuntimeError(
+                "partial_fit is single-process: grow the map on one process, then serve "
+                "the version from any process"
+            )
         from repro_torch.checkpoint import Checkpointer, MapLineage
         from repro_torch.core.strategy import EpochEndEvent, EpochStartEvent, PartialRefineStrategy, as_callbacks
         from repro_torch.data.store import is_store
@@ -710,7 +762,7 @@ class NomadProjection:
         from, on its device. The frozen map comes from the last ``fit`` in
         this process, else from ``cfg.checkpoint_dir`` (θ and the cached
         index: no training data needed). The default server is cached;
-        ``overrides`` (``strategy=``, ``microbatch=``, ``steps=``, ``lr=``)
+        ``overrides`` (``strategy=``, ``mesh=``, ``microbatch=``, ``steps=``, ``lr=``)
         give a fresh, uncached one, so a one-off override never changes what
         ``transform()`` does later."""
         from repro_torch.checkpoint import latest_step

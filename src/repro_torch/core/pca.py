@@ -65,8 +65,8 @@ def pca_init_streamed(store, out_dim: int = 2, scale: float = 1e-4, chunk_rows: 
     only on (N, chunk_rows), so two stores holding the same rows give
     bit-identical inits. Returns the (N, out_dim) float32 init.
     """
+    from repro_torch.core.runtime import resolve_device
     from repro_torch.data.store import DEFAULT_CHUNK_ROWS
-    from repro_torch.index.build import resolve_device
     from repro_torch.index.kmeans import device_chunks
 
     device = resolve_device(device)

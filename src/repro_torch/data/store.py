@@ -196,6 +196,17 @@ class EmbeddingStore:
         for s in range(0, n, chunk_rows):
             yield s, self.read(s, min(s + chunk_rows, n))
 
+    def process_row_range(self, process_index: int, process_count: int) -> Tuple[int, int]:
+        """The contiguous rows ``[start, stop)`` process ``process_index``
+        of ``process_count`` owns: a balanced split (sizes differ by at
+        most one), in process order, so the ranges concatenated in order
+        are the store."""
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside [0, {process_count})")
+        base, extra = divmod(self.shape[0], process_count)
+        start = process_index * base + min(process_index, extra)
+        return start, start + base + (1 if process_index < extra else 0)
+
     def materialize(self) -> np.ndarray:
         """The full float32 array: an explicit O(N·D) host allocation."""
         out = np.empty(self.shape, np.float32)
@@ -361,6 +372,17 @@ class ShardedStore(EmbeddingStore):
                 raw = self._shard(i)[sorted_rows[lo:hi] - self._starts[i]]
                 out[order[lo:hi]] = _decode(raw, self.dtype_name)
         return out
+
+    def assigned_shards(self, process_index: int, process_count: int) -> list:
+        """Indices of the shard files that overlap this process's
+        :meth:`process_row_range`: the files it opens to stream its rows (a
+        boundary shard may be a neighbour's too)."""
+        start, stop = self.process_row_range(process_index, process_count)
+        if start == stop:
+            return []
+        i0 = int(np.searchsorted(self._starts, start, side="right")) - 1
+        i1 = int(np.searchsorted(self._starts, stop, side="left")) - 1
+        return list(range(i0, i1 + 1))
 
 
 # ---------------------------------------------------------------------------

@@ -136,18 +136,13 @@ def load_index(path: str) -> AnnIndex:
     return index_from_arrays(fields)
 
 
-def build_index(x, cfg, *, device=None, strategy=None) -> AnnIndex:
+def build_index(x, cfg, *, device=None, strategy=None, mesh=None) -> AnnIndex:
     """K-means (LSH init) → capacity-bounded clusters → in-cluster exact
-    kNN: ``IndexBuilder(cfg, device=device).build(x)``, on the card unless
-    ``device`` asks for the CPU. ``x`` is an array or a store (the
-    streamed build). ``strategy`` may be None, ``"local"`` or ``"auto"``:
-    the port builds on one device; the sharded build waits for multi-GPU
-    (ROADMAP.md, queue 1 item 5)."""
+    kNN: ``IndexBuilder(cfg, strategy=strategy, mesh=mesh,
+    device=device).build(x)``, on the card unless ``device`` asks for the
+    CPU. ``x`` is an array or a store (the streamed build); ``strategy``
+    (default ``cfg.build_strategy``) is "auto", "local", "sharded" or
+    "distributed", over the slots of ``mesh`` or of the global pool."""
     from repro_torch.index.build import IndexBuilder
 
-    if strategy not in (None, "local", "auto"):
-        raise NotImplementedError(
-            f"build strategy {strategy!r}: the port builds on one device; the sharded build "
-            "waits for multi-GPU (ROADMAP.md, queue 1 item 5)"
-        )
-    return IndexBuilder(cfg, device=device).build(x)
+    return IndexBuilder(cfg, strategy=strategy, mesh=mesh, device=device).build(x)

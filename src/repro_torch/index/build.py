@@ -1,6 +1,7 @@
-"""The local index build (paper §3.2) on one device.
+"""The index build (paper §3.2): on one device, streamed, or sharded over
+a mesh of shard slots.
 
-:class:`IndexBuilder` runs the JAX package's local pipeline stage by stage:
+:class:`IndexBuilder` runs the JAX package's pipeline stage by stage:
 
 * **kmeans**  — LSH-initialised EM (:mod:`repro_torch.index.kmeans`), its
   E-step the ``kmeans_assign`` registry kernel per row block;
@@ -23,6 +24,16 @@ never lands whole in host or device memory. Chunk boundaries depend only on
 (N, chunk_rows), so a store and an array holding the same rows build
 bit-identical indices.
 
+``build_strategy`` "sharded" (:meth:`IndexBuilder._build_slots`) runs the
+same stages over a flat mesh of shard slots (``launch/mesh.py``): rows
+sharded contiguously, k-means with one (K, D+1) partial-sum exchange a
+pass (``kmeans.kmeans_fit_sharded``), each slot's candidate pass through
+``pairwise`` and one exchange of the bids a round, and each slot's in-cell
+kNN of its own contiguous cells. "distributed" is the same program over
+every process of a ``torch.distributed`` run, each reading only its own
+slots' rows of a store; with one process it is the sharded build bit for
+bit, and one slot is the local build bit for bit.
+
 Devices: :class:`IndexBuilder` runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no device named it raises.
 """
@@ -40,25 +51,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import NomadConfig
+from repro_torch.core.runtime import process_count, process_index, resolve_device
+from repro_torch.core.strategy import largest_divisor_leq, sync_processes
 from repro_torch.index import kmeans as km
 from repro_torch.index.ann import AnnIndex, data_fingerprint
 from repro_torch.index.knn import batched_cluster_knn, smallest_k_by_sort
 from repro_torch.kernels.capacity_admit.ops import capacity_admit
 from repro_torch.kernels.pairwise.ops import pairwise_dist2
+from repro_torch.launch.mesh import devices, flat_mesh
 
 KNN_CELL_CHUNK = 256  # cells per batched in-cell kNN launch
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else the first CUDA device; never a silent CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available: pass device='cpu' to run the port's "
-            "plain PyTorch path on the CPU"
-        )
-    return torch.device("cuda", torch.cuda.current_device())
+BUILD_AXIS = "build"
+BUILD_STRATEGIES = ("auto", "local", "sharded", "distributed")
 
 
 def seeded_generator(device: torch.device, *key: int) -> torch.Generator:
@@ -127,15 +131,22 @@ def capacity_rounds(cand_idx, cand_d2, n_clusters: int, capacity: int, max_round
     stragglers; free (K,) int32). Every round with bidders admits at least
     one, and the loop stops once no row can bid. Rows from ``n_real`` on
     are chunk padding of the streamed cache and never bid."""
-    n = cand_idx.shape[0]
-    device = cand_idx.device
+    return bidding_rounds(lambda free: bid_from_candidates(cand_idx, cand_d2, free), cand_idx.shape[0],
+                          n_clusters, capacity, max_rounds, cand_idx.device, n_real)
+
+
+def bidding_rounds(bid, n: int, n_clusters: int, capacity: int, max_rounds: int, device,
+                   n_real: Optional[int] = None):
+    """The rounds of :func:`capacity_rounds` with the bids of all ``n``
+    rows from ``bid(free) -> (pick, d2, has)``: the rows' own candidates,
+    or every slot's gathered (:meth:`IndexBuilder._build_slots`)."""
     assign = torch.full((n,), -1, dtype=torch.int32, device=device)
     free = torch.full((n_clusters,), capacity, dtype=torch.int32, device=device)
     real = torch.arange(n, device=device) < (n if n_real is None else n_real)
     for _ in range(max_rounds):
         if not bool(torch.any((assign < 0) & real)):
             break
-        pick, d2, has = bid_from_candidates(cand_idx, cand_d2, free)
+        pick, d2, has = bid(free)
         bidding = (assign < 0) & real & has
         if not bool(torch.any(bidding)):
             break
@@ -358,29 +369,64 @@ class BuildReport:
     stage_rss_mb: dict = dataclasses.field(default_factory=dict)
 
 
-class IndexBuilder:
-    """Builds the §3.2 :class:`AnnIndex` on one device.
+def resolve_build_strategy(spec: Optional[str], cfg: NomadConfig, mesh=None, device=None):
+    """``"auto" | "local" | "sharded" | "distributed"`` → ("local", None) or
+    ("sharded" | "distributed", a flat mesh of slots).
 
-    ``device`` defaults to the first CUDA device (raising without one);
-    pass ``device="cpu"`` for the plain path. ``build`` takes an array, or
-    a store for the streamed build. After it the per-stage wall times
-    (synchronised with the device) and peak host RSS sit in
+    The build mesh is one flat axis over the widest cluster-divisible
+    prefix of the slots: ``mesh``'s (the estimator's training mesh), else
+    the global pool on ``device``. ``"auto"`` builds sharded exactly when
+    that mesh holds more than one slot. Under several processes every slot
+    must join the ``"distributed"`` mesh, so ``n_clusters`` must divide
+    the global slot count."""
+    spec = spec or "auto"
+    if spec not in BUILD_STRATEGIES:
+        raise ValueError(f"unknown build_strategy {spec!r} (want 'auto'|'local'|'sharded'|'distributed')")
+    if spec == "local":
+        return "local", None
+    devs = mesh.slots if mesh is not None else devices(device)
+    width = largest_divisor_leq(cfg.n_clusters, len(devs))
+    if spec == "distributed":
+        if process_count() > 1 and width != len(devs):
+            raise ValueError(
+                f"build_strategy='distributed': n_clusters={cfg.n_clusters} must be divisible by the "
+                f"global slot count {len(devs)} ({process_count()} processes): every process's slots "
+                "must join the build mesh"
+            )
+        return "distributed", flat_mesh(BUILD_AXIS, devs[:width])
+    if spec == "auto" and width == 1:
+        return "local", None
+    return "sharded", flat_mesh(BUILD_AXIS, devs[:width])
+
+
+class IndexBuilder:
+    """Builds the §3.2 :class:`AnnIndex` on one device or over shard slots.
+
+    ``strategy`` (default ``cfg.build_strategy``) is "auto", "local",
+    "sharded" or "distributed"; ``mesh`` (the estimator's training mesh)
+    supplies the slots, else the global pool on ``device``. ``device``
+    defaults to the first CUDA device (raising without one); pass
+    ``device="cpu"`` for the plain path. ``build`` takes an array, or a
+    store for the streamed (or distributed) build. After it the per-stage
+    wall times (synchronised with the device) and peak host RSS sit in
     :attr:`report`.
     """
 
-    def __init__(self, cfg: NomadConfig, *, device=None):
-        if cfg.build_strategy not in ("auto", "local"):
-            raise NotImplementedError(
-                f"build_strategy={cfg.build_strategy!r}: only the local build is ported"
-            )
+    def __init__(self, cfg: NomadConfig, *, strategy: Optional[str] = None, mesh=None, device=None):
         self.cfg = cfg
+        self.spec = strategy if strategy is not None else cfg.build_strategy
+        if self.spec not in BUILD_STRATEGIES:
+            raise ValueError(f"unknown build_strategy {self.spec!r} (want 'auto'|'local'|'sharded'|'distributed')")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.report: Optional[BuildReport] = None
 
     def build(self, x) -> AnnIndex:
         """Build the index of ``x``: an (N, D) float32 array, or any
         :class:`repro_torch.data.store.EmbeddingStore`. A store, or
-        ``cfg.chunk_rows > 0``, takes the streamed build."""
+        ``cfg.chunk_rows > 0``, takes the streamed build, unless the build
+        is "distributed" (or runs under several processes), whose slots
+        read their own rows of the store."""
         from repro_torch.data.store import as_store, is_store
 
         cfg, device = self.cfg, self.device
@@ -388,6 +434,12 @@ class IndexBuilder:
         K, C = cfg.n_clusters, cfg.cluster_capacity
         if K * C < n:
             raise ValueError(f"capacity {C}×{K} < N={n}; raise capacity_slack")
+        if self.spec == "distributed" or process_count() > 1:
+            name, mesh = resolve_build_strategy("distributed", cfg, self.mesh, device)
+        elif is_store(x) or cfg.chunk_rows > 0:
+            name, mesh = "streamed", None
+        else:
+            name, mesh = resolve_build_strategy(self.spec, cfg, self.mesh, device)
         stage_s: dict = {}
         stage_rss: dict = {}
 
@@ -400,13 +452,15 @@ class IndexBuilder:
             stage_rss[label] = rss_mb()
 
         t0 = time.time()
-        streamed = is_store(x) or cfg.chunk_rows > 0
-        if streamed:
+        if name == "streamed":
             index, stragglers = self._build_streamed(as_store(x), stage)
-        else:
+        elif name == "local":
             index, stragglers = self._build_local(x, stage)
+        else:
+            index, stragglers = self._build_slots(as_store(x) if name == "distributed" else x, mesh, stage,
+                                                  distributed=name == "distributed")
         self.report = BuildReport(
-            strategy="streamed" if streamed else "local", n_shards=1,
+            strategy=name, n_shards=1 if mesh is None else mesh.size,
             total_s=time.time() - t0, stage_s=stage_s, stragglers=stragglers,
             stage_rss_mb=stage_rss,
         )
@@ -510,6 +564,109 @@ class IndexBuilder:
                 knn_local[c0 : c0 + nb] = i.cpu().numpy()
                 knn_w[c0 : c0 + nb] = w.cpu().numpy()
         return self._assemble(store, x_rows, knn_local, knn_w, counts, cents_h, perm), stragglers
+
+    def _build_slots(self, x, mesh, stage, *, distributed: bool):
+        """The build over the flat ``mesh`` of shard slots. Rows are padded
+        to a multiple of the slot count and sharded contiguously (slot i
+        holds rows [i·N_pad/n, (i+1)·N_pad/n)); padding enters no statistic
+        and never bids. Stages: k-means (:func:`repro_torch.index.kmeans.
+        kmeans_fit_sharded`), each slot's candidate pass, bidding rounds
+        over the gathered bids (one exchange a round, admission the same on
+        every process), the host straggler pass and the permutation, then
+        each slot's in-cell kNN of its own K/n cells. ``distributed``: ``x``
+        is a store and each slot reads only its rows ("place"); under
+        several processes the cluster-major ``x_rows`` is spilled by every
+        process for its own slots and committed by process 0."""
+        from repro_torch.data.store import ShardedStore, commit_sharded_meta, write_sharded
+
+        cfg = self.cfg
+        n, d = x.shape
+        K, C, k = cfg.n_clusters, cfg.cluster_capacity, cfg.n_neighbors
+        block = cfg.build_block_rows
+        slots, local = mesh.slots, mesh.local_indices()
+        n_dev = mesh.size
+        home = slots[local[0]].device
+        rows_per = -(-n // n_dev)
+
+        def rows_of(i):
+            lo, hi = min(i * rows_per, n), min((i + 1) * rows_per, n)
+            blk = x.read(lo, hi) if distributed else np.asarray(x[lo:hi], np.float32)
+            if blk.shape[0] < rows_per:
+                blk = np.concatenate([blk, np.zeros((rows_per - blk.shape[0], d), np.float32)])
+            return torch.from_numpy(np.ascontiguousarray(blk)).to(slots[i].device)
+
+        if distributed:
+            with stage("place"):
+                xs = [rows_of(i) for i in local]
+        else:
+            xs = [rows_of(i) for i in local]
+
+        with stage("kmeans"):
+            cents = km.kmeans_fit_sharded(seeded_generator(home, cfg.seed), xs, K, mesh, n_iters=cfg.kmeans_iters,
+                                          tol=cfg.kmeans_tol, block=block, n_real=n)
+
+        with stage("assign"):
+            blk = max(1, min(block, rows_per))
+            cands = [candidate_pass(xl, cents.to(xl.device), cfg.build_candidates, blk) for xl in xs]
+            del xs
+
+            def bid(free):
+                packed = []
+                for ci, cd in cands:
+                    pick, d2, has = bid_from_candidates(ci, cd, free.to(ci.device))
+                    packed.append(torch.stack([pick, d2.view(torch.int32), has.to(torch.int32)]))
+                allp = torch.cat([p.to(home) for p in mesh.all_gather(packed)], 1)
+                return allp[0], allp[1].view(torch.float32), allp[2].bool()
+
+            assign_d, free_d = bidding_rounds(bid, rows_per * n_dev, K, C, cfg.build_max_rounds, home, n_real=n)
+            del cands
+        with stage("stragglers"):
+            cents_h = cents.cpu().numpy()
+            assign, stragglers = force_place_host(
+                x, cents_h, assign_d[:n].cpu().numpy().astype(np.int64), free_d.cpu().numpy().copy()
+            )
+        Kl = K // n_dev
+        rps = Kl * C
+        with stage("permute"):
+            perm_d, counts = permutation_from_assign(torch.from_numpy(assign).to(home), K, C)
+            perm = perm_d.cpu().numpy()
+            if not distributed:
+                x_rows = np.zeros((K * C, d), x.dtype)
+                x_rows[perm] = x
+                blocks = [x_rows[i * rps : (i + 1) * rps] for i in local]
+            else:  # each slot's cells, from the store rows mapped there
+                blocks = []
+                for i in local:
+                    src = np.flatnonzero((perm >= i * rps) & (perm < (i + 1) * rps))
+                    xloc = np.zeros((rps, d), np.float32)
+                    xloc[perm[src] - i * rps] = x.read_rows(src)
+                    blocks.append(xloc)
+                if process_count() > 1:
+                    if not (cfg.checkpoint_dir or x.path):
+                        raise ValueError(
+                            "distributed build: the x_rows spill needs a place every process resolves "
+                            "alike: set cfg.checkpoint_dir or build from a store on disk"
+                        )
+                    spill_dir = resolve_spill_dir(cfg, x)
+                    for i, xloc in zip(local, blocks):
+                        write_sharded(xloc, spill_dir, rows_per_shard=rps, dtype=cfg.store_dtype,
+                                      row_offset=i * rps, total_rows=K * C, commit=False)
+                    sync_processes("x-rows-spill")
+                    if process_index() == 0:
+                        commit_sharded_meta(spill_dir, K * C, d, rows_per_shard=rps, dtype=cfg.store_dtype)
+                    sync_processes("x-rows-commit")
+                    x_rows = ShardedStore(spill_dir)
+                else:
+                    x_rows = np.concatenate(blocks)
+        with stage("knn"):
+            counts_h = counts.cpu().numpy()
+            parts = [chunked_cluster_knn(xloc.reshape(Kl, C, d), counts_h[i * Kl : (i + 1) * Kl], k, slots[i].device)
+                     for i, xloc in zip(local, blocks)]
+            got_i = mesh.all_gather([torch.from_numpy(p[0]).to(home) for p in parts])
+            got_w = mesh.all_gather([torch.from_numpy(p[1]).to(home) for p in parts])
+            knn_local = np.concatenate([t.cpu().numpy() for t in got_i])
+            knn_w = np.concatenate([t.cpu().numpy() for t in got_w])
+        return self._assemble(x, x_rows, knn_local, knn_w, counts, cents_h, perm), stragglers
 
     def _assemble(self, x, x_rows, knn_local, knn_w, counts, cents_h, perm) -> AnnIndex:
         K, C = self.cfg.n_clusters, self.cfg.cluster_capacity

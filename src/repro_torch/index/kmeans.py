@@ -140,7 +140,8 @@ def kmeans_fit(
     on them) and ``counts`` its bincount, as the JAX package's alignment
     rule gives them.
     """
-    from repro_torch.index.build import resolve_device, seeded_generator
+    from repro_torch.core.runtime import resolve_device
+    from repro_torch.index.build import seeded_generator
 
     device = resolve_device(device)
     gen = seed_or_generator
@@ -152,6 +153,70 @@ def kmeans_fit(
     assign, _ = blocked_assign(xd, cents, blk)
     counts = torch.bincount(assign.long(), minlength=n_clusters).float()
     return cents, assign, counts
+
+
+def kmeans_fit_sharded(gen: torch.Generator, x_local, n_clusters: int, mesh, n_iters: int = 25, tol: float = 0.0,
+                       *, block: int = 16384, n_real: Optional[int] = None) -> torch.Tensor:
+    """Distributed EM: rows sharded over the flat ``mesh`` of shard slots,
+    one (K, D+1) partial-sum exchange a pass.
+
+    ``x_local`` holds this process's slots' row blocks (equal lengths,
+    slot i the global rows [i·len, (i+1)·len), on the slots' devices);
+    rows from ``n_real`` on are padding and enter no statistic. The LSH
+    init sums its buckets the same way, draws its planes and fallback rows
+    from ``gen`` in the resident init's order, and takes each fallback row
+    from the slot that holds it. Partials are all-gathered and added in
+    slot order, so the centroids (replicated, on ``gen``'s device) do not
+    depend on how processes hold the slots, and one slot reproduces
+    :func:`kmeans_centroids` bit for bit. Convergence keeps the pre-update
+    centroids, as :func:`em_loop` does."""
+    local = mesh.local_indices()
+    rows_per, d = x_local[0].shape
+    n = rows_per * mesh.size if n_real is None else n_real
+    real = [xl[: max(0, min(rows_per, n - i * rows_per))] for i, xl in zip(local, x_local)]
+    home = gen.device
+
+    def exchange(parts):  # (R, D+1) partials of the local slots → Σ over all slots, in slot order
+        tot = None
+        for p in mesh.all_gather(parts):
+            tot = p.to(home) if tot is None else tot + p.to(home)
+        return tot[:, :d], tot[:, d]
+
+    def stats(n_out, index, xr):
+        ones = torch.ones((xr.shape[0],), device=xr.device)
+        return torch.cat([scatter_sum(n_out, index, xr.float()), scatter_sum(n_out, index, ones)[:, None]], 1)
+
+    planes = lsh_planes(gen, d, n_clusters, home)
+    n_buckets = 2 ** planes.shape[1]
+    sums, cnts = exchange([stats(n_buckets, lsh_codes(xr, planes.to(xr.device)), xr) for xr in real])
+    fb = torch.randint(0, n, (n_clusters,), generator=gen, device=home)
+    parts = []
+    for i, xr in zip(local, real):
+        at = fb.to(xr.device) - i * rows_per
+        own = (at >= 0) & (at < xr.shape[0])
+        rows = xr[at.clamp(0, max(xr.shape[0] - 1, 0))].float() if xr.shape[0] else torch.zeros(
+            (n_clusters, d), device=xr.device)
+        parts.append(torch.cat([rows, own[:, None].float()], 1))
+    fallback = None
+    for p in mesh.all_gather(parts):  # each fallback row from the slot that holds it
+        p = p.to(home)
+        fallback = p[:, :d] if fallback is None else torch.where(p[:, d:] > 0, p[:, :d], fallback)
+    cents = bucket_centroids(sums, cnts, n_clusters, fallback)
+
+    blk = max(1, min(block, rows_per))
+    for _ in range(n_iters):
+        parts = []
+        for xr in real:
+            a, _ = blocked_assign(xr, cents.to(xr.device), blk) if xr.shape[0] else (
+                torch.zeros((0,), dtype=torch.int32, device=xr.device), None)
+            parts.append(stats(n_clusters, a, xr))
+        sums, cnts = exchange(parts)
+        new = sums / torch.clamp_min(cnts, 1.0)[:, None]
+        new = torch.where((cnts > 0)[:, None], new, cents)
+        if bool(torch.max(torch.sum(torch.square(new - cents), -1)) < tol):
+            break  # freeze-on-converge: keep the pre-update centroids
+        cents = new
+    return cents
 
 
 def capacity_assign(

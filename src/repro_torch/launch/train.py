@@ -19,7 +19,7 @@ are the JAX package's launcher's (``epoch …``, ``checkpoint: …``,
 reading one reads the other; ``stages {…}`` adds the fit's stage times
 (seconds, JSON). One device only: ``--mesh`` other than ""
 or "1", ``--host-devices`` above 1 and ``--hierarchical`` exit with status
-2 (multi-GPU is ROADMAP.md queue 1 item 5).
+2: the sharded fit's launcher is ``python -m repro_torch.launch.distributed``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --workload nomad_quickstart \\
@@ -37,7 +37,8 @@ import json
 import os
 import sys
 
-MULTI_GPU = "the port runs on one device; multi-GPU waits (ROADMAP.md, queue 1 item 5)"
+MULTI_GPU = ("this launcher fits on one device; the sharded fit runs through "
+             "python -m repro_torch.launch.distributed (ROADMAP.md, queue 1 item 5)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,9 +77,9 @@ def main(argv=None) -> int:
     from repro_torch.checkpoint import latest_step, load_metadata
     from repro_torch.configs import get_nomad
     from repro_torch.core.nomad import NomadProjection
+    from repro_torch.core.runtime import resolve_device
     from repro_torch.core.strategy import FitCallbacks
     from repro_torch.data.synthetic import hierarchical_mixture
-    from repro_torch.index.build import resolve_device
 
     cfg = get_nomad(args.workload)
     if args.n_points:

@@ -41,7 +41,7 @@ def exact_knn(data, q_idx: np.ndarray, k: int, *, device=None, chunk: int = 2048
     at distance 0 may not find itself among the k + 1 searched, and keeps
     the first k. Where N ≤ k the missing neighbours are -1 or -2, as in the
     JAX package; neither is a row. Runs on ``device`` (default: the card)."""
-    from repro_torch.index.build import resolve_device
+    from repro_torch.core.runtime import resolve_device
 
     device = resolve_device(device)
     d = torch.as_tensor(np.asarray(data, np.float32), device=device)

@@ -100,8 +100,8 @@ def from_reference(tree: dict, cfg: ArchConfig, *, device=None) -> LM:
     """The port's model holding the reference tree's values (see the module
     docstring); on ``device`` (default: the card, as every entry point of
     the port; the CPU only when asked for, and without a card this raises
-    as ``index.build.resolve_device`` does)."""
-    from repro_torch.index.build import resolve_device
+    as ``core.runtime.resolve_device`` does)."""
+    from repro_torch.core.runtime import resolve_device
 
     device = resolve_device(device)
     root = _Leaves(tree, (), device, cfg.param_dtype)

@@ -423,7 +423,7 @@ def cache_capacity(cfg: ArchConfig, seq_len: int) -> int:
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, filled: Optional[int] = None, *, device=None) -> dict:
     """Zero cache with ``filled`` tokens marked valid (default: seq_len − 1),
     on ``device`` (default: the card; the CPU only when asked for)."""
-    from repro_torch.index.build import resolve_device
+    from repro_torch.core.runtime import resolve_device
 
     dev = resolve_device(device)
     cd = dtype_of(cfg.compute_dtype)

@@ -135,7 +135,7 @@ def init_embedder(workload, seed: int = 0, *, device=None, **arch_overrides):
     """(params, reduced ArchConfig) for one named pipeline workload: the
     model initialised on ``device`` (default: the card) from a
     ``torch.Generator`` seeded with ``seed``."""
-    from repro_torch.index.build import resolve_device
+    from repro_torch.core.runtime import resolve_device
     from repro_torch.models import lm
 
     acfg = workload.arch_config(**arch_overrides)

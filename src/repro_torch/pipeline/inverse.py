@@ -72,7 +72,7 @@ class InverseProjection:
         """Map 2D coordinates ``(B, in_dim)`` to embedding vectors
         ``(B, out_dim)``: float32, on the host, computed on ``device``
         (default: the card; pass ``"cpu"`` for the CPU)."""
-        from repro_torch.index.build import resolve_device
+        from repro_torch.core.runtime import resolve_device
 
         q = np.asarray(theta, np.float32)
         if q.ndim == 1:
@@ -195,7 +195,7 @@ def train_inverse(
     ``batch`` rows, takes the MSE, its gradient and one AdamW update under
     ``warmup_cosine``.
     """
-    from repro_torch.index.build import resolve_device
+    from repro_torch.core.runtime import resolve_device
 
     th = np.asarray(theta, np.float32)
     xs = np.asarray(x, np.float32)

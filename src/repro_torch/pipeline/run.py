@@ -64,7 +64,7 @@ def run_pipeline(
     it). Stage walls end with the stage's results on the host.
     """
     from repro_torch.core.nomad import NomadProjection
-    from repro_torch.index.build import resolve_device
+    from repro_torch.core.runtime import resolve_device
     from repro_torch.pipeline.embed import corpus_for, embed_to_store, init_embedder
     from repro_torch.pipeline.inverse import inverse_from_frozen, roundtrip_score, save_inverse
     from repro_torch.serve.frozen import FrozenMap

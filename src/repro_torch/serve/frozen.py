@@ -99,6 +99,14 @@ class FrozenMap:
         dists = dists.cpu().numpy()
         return (ids[0], dists[0]) if squeeze else (ids, dists)
 
+    def to(self, device) -> "FrozenMap":
+        """The same map with every tensor on ``device`` (a serving slot's
+        replica)."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self) if torch.is_tensor(getattr(self, f.name))
+        })
+
     # -- constructors ----------------------------------------------------------
 
     @classmethod
@@ -109,7 +117,7 @@ class FrozenMap:
         are bit-identical given the same inputs. ``device`` defaults to the
         card (raising without one); pass ``"cpu"`` for the plain path."""
         from repro_torch.core.nomad import local_means
-        from repro_torch.index.build import resolve_device
+        from repro_torch.core.runtime import resolve_device
 
         device = resolve_device(device)
         K, C = index.n_clusters, index.capacity

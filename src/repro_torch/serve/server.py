@@ -2,11 +2,13 @@
 
 The server owns microbatching, padding, latency accounting and result
 assembly; :func:`repro_torch.serve.transform.place_batch` places each
-batch. The port serves on one device: ``strategy`` "local", and "auto",
-which means local on one card. "sharded" (query rows split over several
-cards) raises ``NotImplementedError`` until the multi-GPU slice. Queries
-may be an array or a disk-backed store (a memmap, a ``.npy`` path or a
-store directory), validated per chunk and read one batch at a time.
+batch. ``strategy`` "local" serves on the map's device; "sharded" splits
+each batch of ``microbatch × n_shards`` query rows over a flat mesh of
+shard slots (``launch/mesh.py``), the frozen map replicated on every
+slot's device, and gathers the slots' placements back in row order;
+"auto" is local with one slot in the pool. Queries may be an array or a
+disk-backed store (a memmap, a ``.npy`` path or a store directory),
+validated per chunk and read one batch at a time.
 
 Two entry points:
 
@@ -31,6 +33,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import device_count, devices, flat_mesh
 from repro_torch.serve.frozen import FrozenMap
 from repro_torch.serve.transform import place_batch
 
@@ -86,37 +89,94 @@ class BatchOutput:
     latency_s: float  # from the batch's upload to its results on the host
 
 
-def resolve_serve_strategy(spec: Optional[str]) -> str:
-    """"auto" | "local" → "local"; "sharded" is not ported yet."""
+SERVE_AXIS = "serve"
+
+
+def resolve_serve_strategy(spec: Optional[str], mesh=None, device=None):
+    """``"auto" | "local" | "sharded"`` → ("local", None) or ("sharded", a
+    flat mesh of slots): ``mesh`` when it has one axis, else one flat axis
+    over its slots or over the global pool on ``device``. "auto" is local
+    when that pool holds one slot."""
     spec = spec or "auto"
     if spec not in ("auto", "local", "sharded"):
         raise ValueError(f"unknown serve_strategy {spec!r} (want 'auto'|'local'|'sharded')")
-    if spec == "sharded":
-        raise NotImplementedError("serve_strategy='sharded' is not ported yet: the port serves on one device")
-    return "local"
+    if spec == "local" or (spec == "auto" and mesh is None and device_count() == 1):
+        return "local", None
+    devs = mesh.slots if mesh is not None else devices(device)
+    if spec == "auto" and len(devs) == 1:
+        return "local", None
+    if mesh is not None and len(mesh.axis_names) == 1:
+        return "sharded", mesh
+    return "sharded", flat_mesh(SERVE_AXIS, devs)
 
 
 class MapServer:
     """Turns a :class:`FrozenMap` into a batched query engine on the map's
-    device. Queries are cut into fixed ``microbatch``-row batches (the last
-    one zero-padded); each batch's wall time lands in
-    ``TransformResult.batch_latency_s``."""
+    device, or on a mesh of shard slots. Queries are cut into fixed
+    ``microbatch × n_shards``-row batches (the last one zero-padded); each
+    batch's wall time lands in ``TransformResult.batch_latency_s``."""
 
     def __init__(self, frozen: FrozenMap, *, strategy: Optional[str] = None,
-                 microbatch: Optional[int] = None, steps: Optional[int] = None,
+                 microbatch: Optional[int] = None, mesh=None, steps: Optional[int] = None,
                  lr: Optional[float] = None):
         cfg = frozen.cfg
         self.frozen = frozen
-        self.strategy = resolve_serve_strategy(strategy if strategy is not None else cfg.serve_strategy)
-        self.n_shards = 1  # one device: "sharded" raises above until the multi-GPU slice
+        self.strategy, self.mesh = resolve_serve_strategy(
+            strategy if strategy is not None else cfg.serve_strategy, mesh, frozen.device
+        )
+        self.n_shards = 1 if self.mesh is None else self.mesh.size
         self.microbatch = microbatch or cfg.serve_microbatch
         self.steps = cfg.transform_steps if steps is None else steps
         self._lr = lr
+        self._replicas = {frozen.device: frozen}
 
     @property
     def batch_rows(self) -> int:
-        """Query rows per placed batch."""
-        return self.microbatch
+        """Query rows per placed batch (all slots together)."""
+        return self.microbatch * self.n_shards
+
+    def _frozen_on(self, device) -> FrozenMap:
+        """The frozen map on ``device`` (copied there once)."""
+        if device not in self._replicas:
+            self._replicas[device] = self.frozen.to(device)
+        return self._replicas[device]
+
+    def _place(self, qb, rows, seeds, valid, return_neighbors: bool):
+        """(θ, own, ids, dists, step losses) of one batch: on the map's
+        device, or slice i of ``microbatch`` rows on slot i, gathered in
+        slot order. A slot's step losses are its loss sums over the batch's
+        valid rows, so they add up to the whole batch's mean."""
+        def run(fz, sl):
+            dev = fz.device
+            return place_batch(
+                fz,
+                torch.from_numpy(np.require(qb[sl], np.float32, ["C", "W"])).to(dev),
+                torch.as_tensor(np.asarray(rows[sl], np.int64) & 0xFFFFFFFF, device=dev),
+                torch.as_tensor(np.asarray(seeds[sl], np.int64) & 0xFFFFFFFF, device=dev),
+                torch.as_tensor(np.asarray(valid[sl], bool), device=dev),
+                steps=self.steps,
+                lr=self._lr,
+                with_neighbors=return_neighbors,
+                n_valid=max(int(np.count_nonzero(valid)), 1),
+            )
+
+        if self.mesh is None:
+            return run(self.frozen, slice(None))
+        mb, slots = self.microbatch, self.mesh.slots
+        outs = [run(self._frozen_on(slots[i].device), slice(i * mb, (i + 1) * mb))
+                for i in self.mesh.local_indices()]
+        fields = []
+        for j in range(5):
+            if outs[0][j] is None:
+                fields.append(None)
+                continue
+            got = self.mesh.all_gather([o[j] for o in outs])
+            home = got[0].device
+            if j == 4:
+                fields.append(torch.stack([g.to(home) for g in got]).sum(0) if got[0].numel() else got[0])
+            else:
+                fields.append(torch.cat([g.to(home) for g in got]))
+        return tuple(fields)
 
     def transform_batch(self, qb: np.ndarray, rows: np.ndarray, seeds: np.ndarray,
                         valid: np.ndarray, *, return_neighbors: bool = True) -> BatchOutput:
@@ -130,18 +190,8 @@ class MapServer:
                 f"transform_batch wants exactly ({B}, {self.frozen.dim}) rows "
                 f"(pad the tail), got {qb.shape}"
             )
-        device = self.frozen.device
         tb = time.time()
-        th, own, ids, dist, sl = place_batch(
-            self.frozen,
-            torch.from_numpy(np.require(qb, np.float32, ["C", "W"])).to(device),
-            torch.as_tensor(np.asarray(rows, np.int64) & 0xFFFFFFFF, device=device),
-            torch.as_tensor(np.asarray(seeds, np.int64) & 0xFFFFFFFF, device=device),
-            torch.as_tensor(np.asarray(valid, bool), device=device),
-            steps=self.steps,
-            lr=self._lr,
-            with_neighbors=return_neighbors,
-        )
+        th, own, ids, dist, sl = self._place(qb, rows, seeds, valid, return_neighbors)
         host = [None if a is None else a.cpu().numpy() for a in (th, own, ids, dist, sl)]
         latency = time.time() - tb
         return BatchOutput(

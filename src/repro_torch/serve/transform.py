@@ -125,7 +125,7 @@ def frozen_step(theta: torch.Tensor, fz: FrozenMap, own: torch.Tensor, nb_theta:
 
 def place_batch(fz: FrozenMap, qx: torch.Tensor, rows: torch.Tensor, seeds: torch.Tensor,
                 valid: torch.Tensor, *, steps: Optional[int] = None, lr: Optional[float] = None,
-                with_neighbors: bool = True):
+                with_neighbors: bool = True, n_valid: Optional[int] = None):
     """Place one batch: qx (B, D) on the map's device, rows/seeds (B,) int64
     (the row's index in its request and the request's seed, in
     [0, 2^32)), valid (B,) bool (pad rows are False: they change only the
@@ -133,7 +133,9 @@ def place_batch(fz: FrozenMap, qx: torch.Tensor, rows: torch.Tensor, seeds: torc
 
     Returns (θ (B, d), own (B,), nb_ids (B, k), nb_dists (B, k), step
     losses (steps,)); with ``with_neighbors=False`` the ids and distances
-    are None.
+    are None. A step's loss is its sum over the valid rows divided by
+    ``n_valid`` (default: this batch's valid rows; a slot of a sharded
+    batch passes the whole batch's).
     """
     cfg = fz.cfg
     k, S = cfg.n_neighbors, cfg.n_exact_negatives
@@ -153,7 +155,7 @@ def place_batch(fz: FrozenMap, qx: torch.Tensor, rows: torch.Tensor, seeds: torc
             theta = theta + w_init[:, s, None] * nb_theta[:, s]
         # 4. frozen NOMAD steps
         cnt_own = torch.clamp_min(fz.counts[own], 1)
-        n_valid = max(int(valid.sum()), 1)
+        n_valid = max(int(valid.sum()), 1) if n_valid is None else n_valid
         step_losses = []
         for t in range(T):
             nslot = sample_negative_slots(seeds, rows, t, cnt_own, S)

@@ -267,7 +267,9 @@ def test_fit_saves_async_equal_to_sync(port_ck, data, tmp_path, monkeypatch):
     x, _ = data
     sync_dir = str(tmp_path / "sync")
     res = NomadProjection(CFG.replace(checkpoint_dir=sync_dir), device="cpu").fit(x)
-    assert made == [{"keep": 3, "async_save": True}]  # the fit asks for the async writer
+    # the fit asks for the async writer (one process: it is the primary;
+    # the local fit's one shard)
+    assert made == [{"n_shards": 1, "keep": 3, "async_save": True, "primary": True}]
     np.testing.assert_array_equal(res.embedding, full.embedding)
     got, want = _read_all(ckdir), _read_all(sync_dir)
     for files in list(got.values()) + list(want.values()):

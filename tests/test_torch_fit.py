@@ -126,10 +126,14 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        NomadProjection(SMALL.replace(strategy="sharded"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        MapServer(SimpleNamespace(cfg=SMALL), strategy="sharded")
+    # the sharded strategies are ported (tests/test_torch_sharded.py); a
+    # strategy neither package knows still raises, at the fit and the server
+    from repro_torch.core.strategy import resolve_strategy
+
+    with pytest.raises(ValueError, match="unknown strategy"):
+        resolve_strategy("pmap", SMALL)
+    with pytest.raises(ValueError, match="unknown serve_strategy"):
+        MapServer(SimpleNamespace(cfg=SMALL, device=torch.device("cpu")), strategy="pmap")
     # chunk_rows > 0 is ported: the streamed build of an array equals the
     # streamed build of the same rows behind the store interface
     from repro_torch.data.store import ArrayStore

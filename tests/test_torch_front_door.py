@@ -201,10 +201,18 @@ def test_build_index_layout_and_component_property(built):
 
 @pytest.mark.parametrize("strategy", ["sharded", "hierarchical"])
 def test_build_index_refuses_multi_device(strategy):
+    """The sharded build is ported: on the one-slot pool it is the local
+    build bit for bit. "hierarchical" names a fit strategy, not a build's,
+    and raises."""
     x, _ = gaussian_mixture(100, 4, n_components=2, seed=0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        build_index(x, NomadConfig(n_points=100, dim=4, n_clusters=2, n_neighbors=3), device="cpu",
-                    strategy=strategy)
+    cfg = NomadConfig(n_points=100, dim=4, n_clusters=2, n_neighbors=3)
+    if strategy == "hierarchical":
+        with pytest.raises(ValueError, match="unknown build_strategy"):
+            build_index(x, cfg, device="cpu", strategy=strategy)
+        return
+    got, want = build_index(x, cfg, device="cpu", strategy=strategy), build_index(x, cfg, device="cpu")
+    for f in ("x_rows", "knn_idx", "knn_w", "counts", "centroids", "perm"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
 
 
 def test_handle_for():

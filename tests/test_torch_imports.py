@@ -3,6 +3,7 @@ package, and no source file of it (or chip_smoke.py) imports either."""
 
 from __future__ import annotations
 
+import ast
 import os
 import re
 import subprocess
@@ -44,6 +45,13 @@ def test_import_loads_no_jax_and_no_repro():
         "from repro_torch.service.core import handle_for\n"
         "from repro_torch.models.lm import abstract_params\n"
         "from repro_torch.models.steps import batch_specs, cache_specs, input_specs\n"
+        "import repro_torch.core.distributed, repro_torch.launch.distributed, repro_torch.launch.mesh\n"
+        "from repro_torch.core.runtime import barrier, process_count, process_index, resolve_device\n"
+        "from repro_torch.core.strategy import ShardedStrategy, HierarchicalStrategy, resolve_strategy\n"
+        "from repro_torch.core.strategy import default_mesh, flat_mesh, fetch_global, sync_processes\n"
+        "from repro_torch.index.build import resolve_build_strategy\n"
+        "from repro_torch.index.kmeans import kmeans_fit_sharded\n"
+        "from repro_torch.launch.mesh import Mesh, make_mesh\n"
         "from repro_torch.kernels import registry\n"
         "registry.names()  # imports every kernel module\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
@@ -55,6 +63,27 @@ def test_import_loads_no_jax_and_no_repro():
         [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("module,allowed", [
+    ("repro_torch.core.runtime", {"repro_torch", "repro_torch.core", "repro_torch.core.cauchy",
+                                  "repro_torch.core.runtime"}),
+    ("repro_torch.launch.mesh", {"repro_torch", "repro_torch.core", "repro_torch.core.cauchy",
+                                 "repro_torch.core.runtime", "repro_torch.launch", "repro_torch.launch.mesh"}),
+])
+def test_runtime_layers_import_nothing_above_them(module, allowed):
+    """The process's runtime facts and the slot meshes sit below the fit,
+    the build and serving, which all import them: importing them loads no
+    other module of the port, so no import cycle runs through them."""
+    code = (
+        f"import sys, {module}\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'repro_torch'))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = set(ast.literal_eval(out.stdout.strip().splitlines()[-1]))
+    assert loaded <= allowed, sorted(loaded - allowed)
 
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)

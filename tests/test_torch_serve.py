@@ -318,9 +318,10 @@ def test_unported_serving_options_raise(port_fit, data, tmp_path):
     est, _ = port_fit
     _, q = data
     fz = est.map_server().frozen
-    with pytest.raises(NotImplementedError, match="sharded"):
-        MapServer(fz, strategy="sharded")
-    assert resolve_serve_strategy("auto") == resolve_serve_strategy("local") == "local"
+    # "sharded" is ported (tests/test_torch_sharded.py); an unknown one raises
+    with pytest.raises(ValueError, match="unknown serve_strategy"):
+        MapServer(fz, strategy="pmap")
+    assert resolve_serve_strategy("auto") == resolve_serve_strategy("local") == ("local", None)
     MapServer(fz, strategy="auto")  # local on one card
     # memmap and path queries are ported: they place as the array does
     path = str(tmp_path / "q.npy")
