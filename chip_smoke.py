@@ -129,13 +129,31 @@ Phases, each fatal on failure:
    ``build_index(x, cfg)`` ≡ ``IndexBuilder(cfg).build(x)`` bit for bit and
    ``kmeans_fit`` (K2 launched, its assignment the plain nearest centroid
    of its centroids on ≥ 0.99 of the rows, counts its bincount);
-12. the dry run (``dryrun_check``): ``launch.dryrun.run_lm_cell`` on meta
+12. the multi-GPU NOMAD side (``sharded_path``) on 4 shard slots of the
+   card: the sharded build, fits and serving ≡ local where the reference
+   promises it, and the NCCL launcher at world size 1;
+13. the LM side (``lm_sharded_path``): Mixtral's ``moe_ep`` through
+   ``lm.forward`` (true EP on (1, 4) ≡ ``moe_sort`` bit for bit in fp32 and
+   bf16, the F split on (1, 16) within ``FWD_FP32_REL``), Scout's MoE
+   block with its shared expert ≡ sort, the length-sharded decode of
+   Phi-4-mini (fp32 and bf16) and of Mixtral across its ring, Qwen3-14B's
+   GPipe ≡ sequential bit for bit, ``compressed_psum`` card ≡ CPU bit for
+   bit with its feedback telescoping, and the port's two selftests (their
+   K1-K3 launches the kernels line's ``selftest`` column; every kernel of
+   the NOMAD selftest then against its plain version on that selftest's
+   own inputs, ``selftest_kernels``);
+14. the kernels' specs and the autotuner (``autotune_check``): every K2/K3
+   plan ≡ the default bit for bit at each check shape, sweeps at the main
+   path's shapes, ``validate`` of every spec, the cache's round trip (K3's
+   wrapper, called without a plan, running the cached tile), no launch
+   counted;
+15. the dry run (``dryrun_check``): ``launch.dryrun.run_lm_cell`` on meta
    tensors of the train phase's Phi-4-mini cell (8 × 4,096 tokens, accum 4,
    remat full, flash, int8 moments) and the decode phase's Phi-4-mini
    step: the predicted ``per_device_total`` beside the measured peaks
    (reported), and the op counter's matrix-product FLOPs beside
    ``train_flops``' hardware count, within 5% (the gate);
-13. a checkpoint round trip at the small fit's size: fit with
+16. a checkpoint round trip at the small fit's size: fit with
    ``checkpoint_dir`` (saved by the asynchronous writer),
    ``NomadProjection.from_checkpoint(dir).transform``
    bit-equal to the fitted estimator's, and the same frozen map served on
@@ -148,7 +166,7 @@ Phases, each fatal on failure:
    transform, determinism, the lineage v0 → v1 → v2 (served by
    ``registry.load_lineage``), store ≡ array growth, the kNN patch in
    blocks ≡ one batch, and the old rows' quality against a joint refit;
-14. the stream path: the main path's rows written as a bfloat16 sharded
+17. the stream path: the main path's rows written as a bfloat16 sharded
    store under ``chiprun_out/`` and fitted from disk in 65,536-row chunks
    in a child process (its own peak RSS, stage times, launch counts), its
    map serving 4,096 queries from an ``.npy`` memmap and path bit-equal to
@@ -156,7 +174,7 @@ Phases, each fatal on failure:
    RSS, and here with the same chunks: bit-equal to the store's fit; then
    the randomized PCA (D 4096) on the card against the CPU. The store and
    its spill are deleted at the end;
-15. the kernel table (the contract line), then the card, then the result.
+18. the kernel table (the contract line), then the card, then the result.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 when the repository's ``src/`` is not beside it. Details of every check
@@ -3642,6 +3660,540 @@ def sharded_path(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM side of multi-GPU on shard slots of one card, and the autotuner
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "mixtral-8x7b"
+EP_LAYERS = 2
+EP_TOKENS = (2, 1_024)  # sequences x tokens through lm.forward
+EP_MESHES = {"true_ep": (1, 4), "f_split": (1, 16)}  # (data, model): 2 experts a slot; 896 columns of F a slot
+EP_SHARED_ARCH = "llama4-scout-17b-a16e"  # its MoE block with the shared expert, at (1, 4)
+SHARDED_DECODE = (16, 2_048, 32)  # Phi-4-mini: prompts, prompt tokens, decode steps
+SHARDED_DECODE_SLOTS = 4  # the cache length over 4 model slots
+RING_DECODE = (1, 8_190, 6)  # Mixtral past its 4,096-token window: batch 1, the length over all 4 slots
+GPIPE_ARCH = "qwen3-14b"
+GPIPE = (8, 4, 6, 2, 512)  # layers, stages, microbatches, sequences a microbatch, tokens
+COMPRESS_SLOTS = 4
+COMPRESS_STEPS = 3
+COMPRESS_RTOL, COMPRESS_ATOL = 1e-5, 1e-4  # tests/test_optim.py's telescoping bound
+LM_SHARDED_REDUCED = [
+    f"{EP_ARCH}: {EP_LAYERS} of 32 layers, {EP_TOKENS[0]} x {EP_TOKENS[1]:,} tokens, random weights "
+    "(fp32 and their bf16 cast)",
+    f"{EP_SHARED_ARCH}: its MoE block alone (one of 48 layers), {EP_TOKENS[0]} x {EP_TOKENS[1]:,} tokens, bf16",
+    f"phi4-mini-3.8b: {FWD_LAYERS} of 32 layers, {SHARDED_DECODE[0]} prompts of {SHARDED_DECODE[1]:,}, "
+    f"{SHARDED_DECODE[2]} decode steps; {EP_ARCH}'s ring: batch 1, a prompt of {RING_DECODE[1]:,}, "
+    f"{RING_DECODE[2]} steps",
+    f"{GPIPE_ARCH}: {GPIPE[0]} of 40 layers, {GPIPE[1]} stages x {GPIPE[0] // GPIPE[1]} layers, {GPIPE[2]} "
+    f"microbatches of {GPIPE[3]} x {GPIPE[4]}",
+    f"compressed all-reduce: {COMPRESS_SLOTS} data slots, each a random gradient shaped as one phi4-mini "
+    f"layer's leaves, {COMPRESS_STEPS} steps",
+    "every mesh's slots share the one card: no wire between cards is measured",
+]
+
+
+def _published(name: str, **kw):
+    """``name`` at its published widths, heads and vocabulary unpadded
+    (one card has no tensor axis to divide)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    return dataclasses.replace(ARCHS[name], head_pad_to=1, vocab_pad_to=1, **kw)
+
+
+def _rel_rows(got, want):
+    """Each row's ‖Δ‖/‖want‖ over the last axis (a token's, or a step's logits)."""
+    return ((got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1)).cpu()
+
+
+def ep_check(device) -> dict:
+    """``moe_ep`` through ``lm.forward`` (``set_ep_mesh``) against
+    ``moe_sort`` on Mixtral at its widths: true EP on (1, 4) ≡ sort bit for
+    bit in fp32 and bf16 (top-2: a token sums at most two nonzero terms);
+    the F split on (1, 16) within ``FWD_FP32_REL`` a token in fp32; Scout's
+    MoE block with its shared expert on (1, 4) ≡ sort. Returns the fp32
+    model for the ring decode."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, moe
+
+    cfg = _published(EP_ARCH, n_layers=EP_LAYERS, param_dtype="float32", compute_dtype="float32")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, EP_TOKENS).astype(np.int32)
+    model = lm.init_params(cfg, generator=torch.Generator(device=device).manual_seed(3))
+    meshes = {k: make_mesh(s, ("data", "model"), [device] * int(np.prod(s))) for k, s in EP_MESHES.items()}
+    out = {"arch": EP_ARCH, "layers": EP_LAYERS, "tokens": list(EP_TOKENS), "meshes": EP_MESHES}
+
+    def forward(m, c, mesh):
+        moe.set_ep_mesh(mesh, ("data",))
+        try:
+            t0 = time.perf_counter()
+            logits, aux, _ = lm.forward(m, c, tokens=torch.from_numpy(toks).to(device))
+            torch.cuda.synchronize(device)
+            return logits, float(aux), time.perf_counter() - t0
+        finally:
+            moe.set_ep_mesh(None, ())
+
+    ref, aux_ref, out["sort_s"] = forward(model, cfg, None)
+    ep, aux_ep, out["true_ep_s"] = forward(model, cfg, meshes["true_ep"])
+    out["true_ep_fp32_bit_equal"] = bool(torch.equal(ep, ref)) and aux_ep == aux_ref
+    out["true_ep_fp32_max_abs"] = _max_err(ep, ref)
+    fs, aux_fs, out["f_split_s"] = forward(model, cfg, meshes["f_split"])
+    rel = _rel_rows(fs, ref)
+    out["f_split_fp32_rel_max"], out["f_split_aux"] = float(rel.max()), (aux_fs, aux_ref)
+    del ep, fs
+    cfg16 = _published(EP_ARCH, n_layers=EP_LAYERS)
+    m16 = lm.cast(model, cfg16)
+    ref16, aux16, _ = forward(m16, cfg16, None)
+    ep16, aux_ep16, out["true_ep_bf16_s"] = forward(m16, cfg16, meshes["true_ep"])
+    out["true_ep_bf16_bit_equal"] = bool(torch.equal(ep16, ref16)) and aux_ep16 == aux16
+    del m16, ref16, ep16, ref
+    torch.cuda.empty_cache()
+    if not (out["true_ep_fp32_bit_equal"] and out["true_ep_bf16_bit_equal"]):
+        raise AssertionError(f"true EP on (1, 4) ≢ moe_sort: {out}")
+    if not (out["f_split_fp32_rel_max"] <= FWD_FP32_REL and abs(aux_fs - aux_ref) <= 1e-6):
+        raise AssertionError(f"the F split on (1, 16) against moe_sort: {out}")
+
+    scfg = _published(EP_SHARED_ARCH)
+    block = moe.init_moe(torch.Generator(device=device).manual_seed(4), scfg)
+    x = torch.randn((*EP_TOKENS, scfg.d_model), generator=torch.Generator(device=device).manual_seed(5),
+                    device=device).to(block.w_gate.dtype)
+    y_sort, a_sort = moe.moe_sort(block, x, scfg)
+    moe.set_ep_mesh(meshes["true_ep"], ("data",))
+    try:
+        y_ep, a_ep = moe.moe_block(block, x, scfg)
+    finally:
+        moe.set_ep_mesh(None, ())
+    out["scout_shared"] = {"experts": scfg.n_experts, "top_k": scfg.top_k, "d_model": scfg.d_model,
+                           "d_ff": scfg.d_ff, "shared": scfg.n_shared_experts,
+                           "bit_equal": bool(torch.equal(y_ep, y_sort) and torch.equal(a_ep, a_sort))}
+    del block, x, y_sort, y_ep
+    torch.cuda.empty_cache()
+    if not out["scout_shared"]["bit_equal"]:
+        raise AssertionError(f"{EP_SHARED_ARCH}'s MoE block on (1, 4) ≢ moe_sort")
+    return out, model, cfg
+
+
+def _decode_pair(device, model, cfg, toks, P: int, steps: int, mesh, batch_axes, s_axes) -> tuple:
+    """Prefill ``P`` tokens once, then ``steps`` decode steps from copies of
+    that cache, unsharded and with the length-sharded context: the two
+    runs' logits (B, steps, V) and their walls."""
+    import torch
+
+    from repro_torch.models import attention, lm, steps as lm_steps
+
+    B = toks.shape[0]
+    _, stacked = lm_steps.make_prefill_step(chunked(cfg, P))(model, {"tokens": toks[:, :P]})
+    cache = lm.load_cache_from_prefill(cfg, lm.init_cache(cfg, B, P + steps, filled=P, device=device), stacked, P)
+    del stacked
+    runs = {}
+    for label, ctx in (("plain", None), ("sharded", mesh)):
+        c = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in cache.items()}
+        attention.set_decode_context(ctx, batch_axes, s_axes)
+        try:
+            t0, got = time.perf_counter(), []
+            for t in range(P, P + steps):
+                logits, c = lm.decode_step(model, cfg, c, toks[:, t : t + 1])
+                got.append(logits[:, 0])
+            torch.cuda.synchronize(device)
+            runs[label] = (torch.stack(got, 1), time.perf_counter() - t0)
+        finally:
+            attention.set_decode_context(None, None, ())
+        del c
+    slots = int(cache["k"].shape[2])
+    del cache
+    return runs["plain"], runs["sharded"], slots
+
+
+def decode_sharded_check(device, mixtral, mixtral_cfg) -> dict:
+    """``attend_decode_sharded`` through ``decode_step``: Phi-4-mini at its
+    widths (2 layers), the cache length over 4 model slots, ≡ the unsharded
+    decode within ``FWD_FP32_REL`` a step's logits in fp32 and within
+    ``FWD_BF16_REL_MEDIAN``/``_MAX`` in bf16; Mixtral's SWA ring across a wrap (batch 1,
+    the length over every slot, batch axes None) in fp32."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+
+    mesh = make_mesh((1, SHARDED_DECODE_SLOTS), ("data", "model"), [device] * SHARDED_DECODE_SLOTS)
+    B, P, n = SHARDED_DECODE
+    cfg = _published("phi4-mini-3.8b", n_layers=FWD_LAYERS, param_dtype="float32", compute_dtype="float32")
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (B, P + n)).astype(np.int32)
+    model = lm.init_params(cfg, generator=torch.Generator(device=device).manual_seed(6))
+    (plain, t_plain), (shard, t_shard), slots = _decode_pair(device, model, cfg, toks, P, n, mesh, ("data",),
+                                                             ("model",))
+    rel = _rel_rows(shard, plain)
+    out = {"phi4_mini": {"batch": B, "prompt": P, "steps": n, "cache_slots": slots, "slot_block": slots // 4,
+                         "fp32_rel_max": float(rel.max()), "plain_s": t_plain, "sharded_s": t_shard}}
+    cfg16 = _published("phi4-mini-3.8b", n_layers=FWD_LAYERS)
+    m16 = lm.cast(model, cfg16)
+    del model
+    (p16, _), (s16, _), _ = _decode_pair(device, m16, cfg16, toks, P, n, mesh, ("data",), ("model",))
+    rel16 = _rel_rows(s16, p16)
+    out["phi4_mini"].update(bf16_rel_median=float(rel16.median()), bf16_rel_max=float(rel16.max()),
+                            bf16_argmax_equal=float((s16.argmax(-1) == p16.argmax(-1)).float().mean()))
+    del m16, p16, s16, plain, shard
+    torch.cuda.empty_cache()
+    if not (out["phi4_mini"]["fp32_rel_max"] <= FWD_FP32_REL and out["phi4_mini"]["bf16_rel_median"]
+            <= FWD_BF16_REL_MEDIAN and out["phi4_mini"]["bf16_rel_max"] <= FWD_BF16_REL_MAX):
+        raise AssertionError(f"the length-sharded decode against the unsharded one: {out['phi4_mini']}")
+
+    B, P, n = RING_DECODE
+    toks = np.random.default_rng(7).integers(0, mixtral_cfg.vocab_size, (B, P + n)).astype(np.int32)
+    (plain, _), (shard, _), slots = _decode_pair(device, mixtral, mixtral_cfg, toks, P, n, mesh, None,
+                                                 ("data", "model"))
+    wraps = P > slots and any((t % slots) == 0 for t in range(P, P + n))
+    out["mixtral_ring"] = {"batch": B, "prompt": P, "steps": n, "cache_slots": slots, "window":
+                           mixtral_cfg.sliding_window, "wraps": wraps,
+                           "fp32_rel_max": float(_rel_rows(shard, plain).max())}
+    del plain, shard
+    torch.cuda.empty_cache()
+    if not (wraps and out["mixtral_ring"]["fp32_rel_max"] <= FWD_FP32_REL):
+        raise AssertionError(f"the sharded decode across Mixtral's ring: {out['mixtral_ring']}")
+    return out
+
+
+def gpipe_check(device) -> dict:
+    """``gpipe`` over 4 stage slots: Qwen3-14B's layers at their widths
+    (bf16), 4 stages x 2 layers, 6 microbatches ≡ the 8 layers applied in
+    sequence, bit for bit; the schedule's T = 6 + 4 − 1."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.pipeline import gpipe, stack_stage_params
+    from repro_torch.models import lm
+    from repro_torch.models.layers import dtype_of
+
+    L, stages, n_micro, Bm, S = GPIPE
+    cfg = _published(GPIPE_ARCH, n_layers=L)
+    model = lm.init_params(cfg, generator=torch.Generator(device=device).manual_seed(8))
+    mesh = make_mesh((stages,), ("stage",), [device] * stages)
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None].expand(Bm, S)
+
+    def stage_fn(layers, x):
+        aux = torch.zeros((), dtype=torch.float32, device=device)
+        for layer in layers:
+            x, aux, _ = layer(x, aux, pos, cfg, True)
+        return x
+
+    x = (torch.randn((n_micro, Bm, S, cfg.d_model), generator=torch.Generator(device=device).manual_seed(9),
+                     device=device)).to(dtype_of(cfg.compute_dtype))
+    run = gpipe(mesh, "stage", stage_fn, n_micro)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        got = run(stack_stage_params(list(model.layers), stages), x)
+        torch.cuda.synchronize(device)
+        t_pipe = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = torch.stack([stage_fn(list(model.layers), x[i]) for i in range(n_micro)])
+        torch.cuda.synchronize(device)
+        t_seq = time.perf_counter() - t0
+    out = {"arch": GPIPE_ARCH, "layers": L, "stages": stages, "micro": n_micro, "micro_shape": [Bm, S],
+           "d_model": cfg.d_model, "weights_gb": sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9,
+           "bit_equal": bool(torch.equal(got, want)), "max_abs": _max_err(got, want), "steps": run.steps,
+           "gpipe_s": t_pipe, "sequential_s": t_seq}
+    del model, x, got, want
+    torch.cuda.empty_cache()
+    if not (out["bit_equal"] and out["steps"] == n_micro + stages - 1):
+        raise AssertionError(f"gpipe ≢ the sequential layers: {out}")
+    return out
+
+
+def compression_check(device) -> dict:
+    """``compressed_psum`` over ``COMPRESS_SLOTS`` data slots, each with its
+    own N(0, 1) gradient shaped as one Phi-4-mini layer's leaves, for
+    ``COMPRESS_STEPS`` steps with error feedback: at the last step, fed
+    the same gradients and the card's incoming residuals, the CPU's
+    reduced gradients and residuals ≡ the card's bit for bit (quantise,
+    dequantise, the residual carried in and out, and the mesh-order sum;
+    one step exercises all of them, and the CPU copy is the phase's
+    slowest part), every slot's reduced gradient is the same at every
+    step, and over the steps the feedback telescopes on the card:
+    Σ_t reduced_t + mean_s r_s ≈ mean_s Σ_t g_s (tests/test_optim.py's
+    bound)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.compression import compressed_psum
+
+    cfg = _published("phi4-mini-3.8b", n_layers=1)
+    layer = lm.abstract_params(cfg).layers[0]
+    shapes = {n: tuple(p.shape) for n, p in layer.named_parameters()}
+    values = sum(int(np.prod(s)) for s in shapes.values())
+    cpu = torch.device("cpu")
+    meshes = {"card": make_mesh((COMPRESS_SLOTS,), ("data",), [device] * COMPRESS_SLOTS),
+              "cpu": make_mesh((COMPRESS_SLOTS,), ("data",), [cpu] * COMPRESS_SLOTS)}
+    res = [{n: torch.zeros(s, device=device) for n, s in shapes.items()} for _ in range(COMPRESS_SLOTS)]
+    total_g = {n: torch.zeros(s, device=device) for n, s in shapes.items()}
+    total_red = {n: torch.zeros(s, device=device) for n, s in shapes.items()}
+    same, agree, walls = True, True, []
+    for step in range(COMPRESS_STEPS):
+        grads = [{n: torch.randn(s, generator=torch.Generator(device=device).manual_seed(1000 * step + 100 * i + j),
+                                 device=device) for j, (n, s) in enumerate(shapes.items())}
+                 for i in range(COMPRESS_SLOTS)]
+        last = step == COMPRESS_STEPS - 1
+        res_in = [{n: r[n].cpu() for n in shapes} for r in res] if last else None
+        t0 = time.perf_counter()
+        red, res = compressed_psum(grads, meshes["card"], "data", res)
+        torch.cuda.synchronize(device)
+        walls.append(time.perf_counter() - t0)
+        if last:
+            red_c, res_c = compressed_psum([{n: g.cpu() for n, g in gs.items()} for gs in grads], meshes["cpu"],
+                                           "data", res_in)
+            same &= all(torch.equal(red[0][n].cpu(), red_c[0][n]) for n in shapes)
+            same &= all(torch.equal(r[n].cpu(), rc[n]) for r, rc in zip(res, res_c) for n in shapes)
+            del red_c, res_c, res_in
+        agree &= all(torch.equal(red[i][n], red[0][n]) for i in range(COMPRESS_SLOTS) for n in shapes)
+        for n in shapes:
+            total_g[n] += sum(g[n] for g in grads) / COMPRESS_SLOTS
+            total_red[n] += red[0][n]
+        del grads, red
+    worst = 0.0
+    for n in shapes:
+        lhs = total_red[n] + sum(r[n] for r in res) / COMPRESS_SLOTS
+        worst = max(worst, float(((lhs - total_g[n]).abs() - COMPRESS_RTOL * total_g[n].abs()).max()))
+    out = {"slots": COMPRESS_SLOTS, "steps": COMPRESS_STEPS, "values_a_slot": values, "leaves": len(shapes),
+           "card_equals_cpu_last_step": bool(same),
+           "slots_agree": bool(agree), "telescope_excess_over_rtol": worst, "atol": COMPRESS_ATOL,
+           "residual_abs_max": max(float(r[n].abs().max()) for r in res for n in shapes),
+           "step_s": walls}
+    del res, total_g, total_red
+    torch.cuda.empty_cache()
+    if not (same and agree and worst <= COMPRESS_ATOL):
+        raise AssertionError(f"compressed_psum: {out}")
+    return out
+
+
+SELFTEST_K1_SLOTS = (5, 6)  # K1 at (2, 4) slot 5 (own cells at 10) and (2, 2, 2) slot 6 (pod 1)
+
+
+def selftest_kernels(device, kept: dict) -> dict:
+    """Every kernel of the NOMAD selftest (``launch/selftest.py``) against
+    its plain version on the selftest's own inputs (``kept``, from
+    ``run(keep=True)``); a disagreement is fatal. The selftest's own
+    asserts would not catch a wrong kernel: part 1 lets NP@10 fall to half
+    the local fit's, and part 4 compares two fits that both run K2.
+
+    * every kernel on the (2, 4) fit's data (:func:`check_path_kernels`:
+      its index, θ, frozen map and the selftest's rows as the queries);
+    * K1 at the step inputs of (2, 4) slot ``SELFTEST_K1_SLOTS[0]`` and of
+      (2, 2, 2) slot ``SELFTEST_K1_SLOTS[1]`` (:func:`check_sharded_k1`);
+    * K2 at every call of part 4's ``kmeans_fit_sharded``: run again with
+      K2's arguments recorded (its centroids must equal the selftest's
+      bit for bit), each row block against that pass's centroids."""
+    import torch
+
+    from repro_torch.core.strategy import HierarchicalStrategy, ShardedStrategy
+    from repro_torch.index import kmeans
+    from repro_torch.kernels.kmeans_assign import ops as k2
+    from repro_torch.serve import FrozenMap, MapServer
+
+    cfg, x, fit = kept["cfg"], kept["x"], kept["dist"]
+    frozen = FrozenMap.from_fit(fit, cfg, device=device)
+    xd = torch.from_numpy(x).to(device)
+    placed = MapServer(frozen).transform(x, seed=7).embedding
+    out = {"path": check_path_kernels(device, fit, frozen, xd, xd, placed, random=False)}
+    out["k1_slots"] = {
+        "(2, 4)": check_sharded_k1(device, cfg, fit, ShardedStrategy(
+            mesh=kept["mesh"], shard_axes=("data", "model")), SELFTEST_K1_SLOTS[0]),
+        "(2, 2, 2)": check_sharded_k1(device, cfg, kept["hier"], HierarchicalStrategy(
+            mesh=kept["mesh3"], shard_axes=("data", "model"), pod_axis="pod"), SELFTEST_K1_SLOTS[1])}
+
+    seen, real = [], kmeans.assign_nearest
+
+    def record(a, c):
+        seen.append((a, c))
+        return real(a, c)
+
+    kmeans.assign_nearest = record
+    try:
+        again = kmeans.kmeans_fit_sharded(torch.Generator(device=device).manual_seed(0), kept["blocks"],
+                                          cfg.n_clusters, kept["mesh1"], n_iters=5)
+    finally:
+        kmeans.assign_nearest = real
+    if not torch.equal(again, kept["cents_d"]):
+        raise AssertionError("part 4's kmeans_fit_sharded, run again, gave other centroids")
+    rows = []
+    for a, c in seen:
+        got, want = k2.assign_nearest_cuda(a, c), k2.assign_nearest_plain(a, c)
+        torch.cuda.synchronize()
+        rows.append(k2_check_scaled(a, c, got, want))  # raises on disagreement
+    out["kmeans_fit_sharded"] = {"calls": len(rows), "shape": rows[0]["shape"],
+                                 "max_abs_err": max(r["max_abs_err"] for r in rows),
+                                 "argmin_equal_frac_min": min(r["argmin_equal_frac"] for r in rows)}
+    del xd
+    return out
+
+
+def lm_sharded_path(device) -> dict:
+    """The LM side of multi-GPU on shard slots of one card: ``moe_ep``
+    (:func:`ep_check`), the length-sharded decode
+    (:func:`decode_sharded_check`), GPipe (:func:`gpipe_check`), the
+    compressed all-reduce (:func:`compression_check`), then the port's two
+    selftests on the card's slots, their K1–K3 launches counted (the
+    kernels line's ``selftest`` column), and every kernel the NOMAD
+    selftest ran held to its plain version on that selftest's own inputs
+    (:func:`selftest_kernels`)."""
+    import torch
+
+    from repro_torch.kernels import registry
+    from repro_torch.launch import selftest, selftest_pipeline
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the fp32 checks would not be fp32")
+    t_phase, walls = time.perf_counter(), {}
+    out = {"reduced": LM_SHARDED_REDUCED, "walls_s": walls}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        walls[label] = time.perf_counter() - t0
+        return r
+
+    out["ep"], mixtral, mixtral_cfg = timed("ep", ep_check, device)
+    out["decode"] = timed("decode", decode_sharded_check, device, mixtral, mixtral_cfg)
+    del mixtral
+    torch.cuda.empty_cache()
+    out["gpipe"] = timed("gpipe", gpipe_check, device)
+    out["compression"] = timed("compression", compression_check, device)
+    registry.reset_launch_counts()
+    out["selftest"] = timed("selftest", lambda: selftest.run(device, keep=True))
+    out["selftest_pipeline"] = timed("selftest_pipeline", selftest_pipeline.run, device)
+    out["launches"] = registry.launch_counts()
+    missing = [n for n in FIT_KERNELS if out["launches"][n] == 0]
+    if missing:
+        raise AssertionError(f"the selftests never launched {missing}")
+    out["selftest_kernels"] = timed("selftest_kernels", selftest_kernels, device, out["selftest"].pop("kept"))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+AUTOTUNE_KERNELS = ("kmeans_assign", "pairwise")  # the only specs with more than one plan
+AUTOTUNE_MAIN = {"kmeans_assign": [((16384, 768), (4096, 768)), ((1024, 768), (4096, 768))],
+                 "pairwise": [((16384, 768), (4096, 768)), ((256, 305, 768), (256, 305, 768))]}
+
+
+def autotune_check(device) -> dict:
+    """The registry's specs and the autotuner on the card: K2 and K3's every
+    plan ≡ the default plan bit for bit at each ``check_shapes`` entry, and
+    a sweep at the main path's shapes (winners and times; every candidate
+    bit-equal); every spec's ``validate`` at its check shapes (the
+    plain-only ``capacity_admit`` refuses); a round trip of the cache in a
+    temporary directory (recorded → a fresh process's winner, which K3's
+    wrapper, called without a plan, then runs, bit-equal to the default
+    tile; a corrupt file → a fresh sweep, rewritten). None of it is counted
+    as a launch."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import autotune, registry
+    from repro_torch.kernels.pairwise import ops as k3
+
+    t_phase = time.perf_counter()
+    registry.reset_launch_counts()
+    out = {"plans": {}, "sweeps": {}, "validated": {}}
+    for name in AUTOTUNE_KERNELS:
+        sp = registry.spec(name)
+        rows = []
+        for i, sig in enumerate(sp.check_shapes):
+            args = sp.make_inputs(_gen(device, 40 + i), sig)
+            with registry.uncounted():
+                want = sp.cuda(*args, plan=sp.default_plan(sig, device))
+                plans = sp.plan_candidates(sig)
+                same = {str(p): all(torch.equal(a, b) for a, b in zip(registry.output_leaves(sp.cuda(*args, plan=p)),
+                                                                       registry.output_leaves(want))) for p in plans}
+            rows.append({"sig": sig, "default": sp.default_plan(sig, device), "bit_equal": same})
+            if not all(same.values()):
+                raise AssertionError(f"{name}: a plan changes the output at {sig}: {same}")
+        out["plans"][name] = rows
+        for shapes in AUTOTUNE_MAIN[name]:
+            sig = tuple((s, "float32") for s in shapes)
+            entry = autotune.sweep(sp, sig, device=device, report=True)
+            out["sweeps"][f"{name} {shapes}"] = {"winner": entry["plan"], "us": entry["us"],
+                                                 "default": sp.default_plan(sig, device),
+                                                 "candidates": entry["candidates"]}
+            print(json.dumps({"autotune": name, "shapes": shapes, "winner": entry["plan"], "us": entry["us"],
+                              "candidates": entry["candidates"]}), flush=True)
+            if not all(c["bit_equal"] for c in entry["candidates"]) or entry["us"] is None:
+                raise AssertionError(f"{name} at {shapes}: {entry}")
+    for name in registry.spec_names():
+        sp = registry.spec(name)
+        if sp.cuda is None:
+            args = sp.make_inputs(_gen(device, 0), sp.check_shapes[0])
+            try:
+                registry.validate(name, args)
+            except ValueError:
+                out["validated"][name] = "refused (plain-only)"
+                continue
+            raise AssertionError(f"validate ran the plain-only {name}")
+        for i, sig in enumerate(sp.check_shapes):
+            registry.validate(name, sp.make_inputs(_gen(device, 60 + i), sig))
+        out["validated"][name] = len(sp.check_shapes)
+    env = {k: os.environ.get(k) for k in ("REPRO_TUNE_CACHE", "REPRO_AUTOTUNE")}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            path = os.path.join(tmp, "tune.json")
+            os.environ["REPRO_TUNE_CACHE"], os.environ["REPRO_AUTOTUNE"] = path, "0"
+            sp = registry.spec("pairwise")
+            sig = ((((49_000, 64), "float32"), ((256, 64), "float32")))
+            planted = {"plan": {"tile": 64}, "us": 1.0}
+            autotune.clear_memory_cache()
+            autotune.record(sp, sig, planted, device=device)
+            autotune.clear_memory_cache()
+            same_bucket = (((50_000, 64), "float32"), ((256, 64), "float32"))
+            reloaded = autotune.plan_for(sp, same_bucket, device=device)
+            # K3's wrapper, called without a plan, takes the planted tile (64, not tile_for's 128)
+            taken, real_plan_for = [], autotune.plan_for
+
+            def spy(*a, **kw):
+                taken.append(real_plan_for(*a, **kw))
+                return taken[-1]
+
+            g = _gen(device, 80)
+            xs, ys = (torch.randn(s, generator=g, device=device) for s, _ in same_bucket)
+            autotune.plan_for = spy
+            try:
+                with registry.uncounted():
+                    by_cache = k3.pairwise_dist2_cuda(xs, ys)
+                    by_default = k3.pairwise_dist2_cuda(xs, ys, plan=sp.default_plan(same_bucket, device))
+            finally:
+                autotune.plan_for = real_plan_for
+            wrapper = {"took": taken, "default": sp.default_plan(same_bucket, device),
+                       "bit_equal_to_default": bool(torch.equal(by_cache, by_default))}
+            del xs, ys, by_cache, by_default
+            with open(path, "w") as f:
+                f.write("{definitely not json")
+            os.environ["REPRO_AUTOTUNE"] = "1"
+            autotune.clear_memory_cache()
+            swept = autotune.plan_for(sp, sp.check_shapes[0], device=device)
+            with open(path) as f:
+                blob = json.load(f)
+            key = autotune.cache_key(sp.name, autotune.card_name(device), sp.check_shapes[0])
+            out["cache_roundtrip"] = {"reloaded": reloaded, "swept": swept, "version": blob.get("version"),
+                                      "rewritten": blob.get("entries", {}).get(key, {}).get("plan") == swept,
+                                      "wrapper": wrapper}
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            autotune.clear_memory_cache()
+    rt = out["cache_roundtrip"]
+    if not (rt["reloaded"] == planted["plan"] and rt["rewritten"] and rt["version"] == autotune.CACHE_VERSION
+            and rt["wrapper"]["took"] == [planted["plan"]] and rt["wrapper"]["bit_equal_to_default"]):
+        raise AssertionError(f"the autotune cache's round trip: {out['cache_roundtrip']}")
+    out["launches"] = registry.launch_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"sweeps and validate counted launches: {out['launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def dryrun_check(train: dict, decode: dict) -> dict:
     """The dry run (``repro_torch.launch.dryrun.run_lm_cell``, on meta
     tensors) of the train phase's own Phi-4-mini cell (``TRAIN_REDUCED``)
@@ -4084,6 +4636,11 @@ def main() -> int:
     sharded = sharded_path(device)
     print(json.dumps({"sharded_path": {k: v for k, v in sharded.items() if k != "kernels"},
                       "card": card}, default=str), flush=True)
+    lm_sharded = lm_sharded_path(device)
+    print(json.dumps({"lm_sharded_path": lm_sharded, "card": card}, default=str), flush=True)
+    tuned = autotune_check(device)
+    print(json.dumps({"autotune_check": {k: v for k, v in tuned.items() if k != "plans"}, "card": card},
+                     default=str), flush=True)
     dryrun = dryrun_check(train, decode)
     print(json.dumps({"dryrun_check": {"phase_s": dryrun["phase_s"], "flop_rel": dryrun["train"]["flop_rel"],
                                        "memory_ratio": dryrun["train"]["memory_ratio"]}}), flush=True)
@@ -4110,7 +4667,8 @@ def main() -> int:
                                  "stream": stream["stream"]["launches"][name],
                                  "service": service["launches"][name], "pipeline": pipeline["launches"][name],
                                  "decode": decode["launches"][name], "train": train["launches"][name],
-                                 "launch": launch["launches"][name], "sharded": sharded["launches"][name]},
+                                 "launch": launch["launches"][name], "sharded": sharded["launches"][name],
+                                 "selftest": lm_sharded["launches"][name]},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
@@ -4133,7 +4691,8 @@ def main() -> int:
     record = {"card": card, "build_s": build_s, "checks": checks, "timing": timing,
               "main_path": main_res, "small_quality": quality, "serve_path": serve, "partial_path": partial,
               "service_path": service, "pipeline_path": pipeline, "decode_path": decode, "train_path": train,
-              "launch_path": launch, "sharded_path": sharded, "dryrun_check": dryrun, "stream_path": stream,
+              "launch_path": launch, "sharded_path": sharded, "lm_sharded_path": lm_sharded,
+              "autotune_check": tuned, "dryrun_check": dryrun, "stream_path": stream,
               "checkpoint_roundtrip": ckpt, "partial_small": small_partial,
               "tpu_kernels": table, "kernels": kernels}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -169,7 +169,7 @@ def shard_index_arrays(index, n_shards: int) -> dict:
     }
 
 
-def fit_distributed(cfg: NomadConfig, x, mesh, *, shard_axes=("data",), pod_axis: Optional[str] = None,
+def fit_distributed(cfg: NomadConfig, x, mesh, *, shard_axes=("data", "model"), pod_axis: Optional[str] = None,
                     index=None, theta0=None, callback=None, device=None):
     """Deprecated: use ``NomadProjection(cfg, strategy="sharded", mesh=mesh,
     device=device).fit(x)``. Returns the old ``(embedding, index, losses)``

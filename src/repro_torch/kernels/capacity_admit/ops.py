@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import registry
+
 
 def capacity_admit(pick, d2, bidding, free):
     """pick (N,) int32 bids, d2 (N,) their distances, bidding (N,) bool,
@@ -31,3 +33,36 @@ def capacity_admit(pick, d2, bidding, free):
     admitted = torch.zeros((n,), dtype=torch.bool, device=pick.device)
     admitted[order] = admitted_sorted
     return admitted
+
+
+# ---------------------------------------------------------------------------
+# Registry spec: plain-only (cuda=None), as the reference's is jnp-only
+# ---------------------------------------------------------------------------
+
+
+def _make_inputs(gen, sig):
+    (ps, _), (ds, _), (bs, _), (fs, _) = sig
+    K = fs[0]
+    pick = registry.draw(gen, ps, "int32", high=K)
+    d2 = registry.draw(gen, ds, "float32", uniform=True)
+    bidding = torch.rand(bs, generator=gen, device=gen.device) < 0.7
+    free = registry.draw(gen, fs, "int32", high=max(2, ps[0] // K))
+    return pick, d2, bidding, free
+
+
+def _sig(n, k):
+    return (((n,), "int32"), ((n,), "float32"), ((n,), "bool"), ((k,), "int32"))
+
+
+SPEC = registry.register_spec(registry.KernelSpec(
+    name="capacity_admit",
+    reference="capacity_admit",
+    plain=capacity_admit,
+    cuda=None,  # plain-only: two stable sorts and a searchsorted on every device
+    plan_candidates=lambda sig: (),
+    default_plan=lambda sig, device=None: {},
+    make_inputs=_make_inputs,
+    check_shapes=(_sig(512, 16), _sig(1000, 7)),
+    bench_shapes=_sig(100_000, 256),
+    dtype_grid=(),
+))

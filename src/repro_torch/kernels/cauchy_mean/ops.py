@@ -164,3 +164,58 @@ BWD = registry.register(
         replaces="src/repro/kernels/cauchy_mean/cauchy_mean.py:104",
     )
 )
+
+
+# ---------------------------------------------------------------------------
+# Registry specs: the JAX spec's shapes, tolerance and (forward) cost model.
+# The plan is :func:`plan`'s split of the means, from K alone: it fixes the
+# order of each head's sum, so it is the only one offered.
+# ---------------------------------------------------------------------------
+
+
+def _sig(B, K, d, dt="float32"):
+    return (((B, d), dt), ((K, d), dt), ((K,), dt), ((B,), "int32"))
+
+
+CHECK_SHAPES = (_sig(512, 1024, 2), _sig(100, 64, 2), _sig(64, 100, 3), _sig(777, 333, 2))
+BENCH_SHAPE = _sig(2048, 2048, 2)
+
+
+def _fwd_inputs(gen, sig):
+    (ts, tdt), (ms, _), (ws, _), (os_, _) = sig
+    return (registry.draw(gen, ts, tdt, scale=3.0), registry.draw(gen, ms, tdt, scale=3.0),
+            registry.draw(gen, ws, tdt, uniform=True), registry.draw(gen, os_, "int32", high=ms[0]))
+
+
+def _bwd_inputs(gen, sig):
+    th, mu, w, own = _fwd_inputs(gen, sig)
+    return th, mu, w, own, registry.draw(gen, (th.shape[0],), "float32")
+
+
+def _fwd_cost(sig):
+    (B, d) = sig[0][0]
+    K = sig[1][0][0]
+    return {"flops": float(B) * K * (3 * d + 4), "bytes": 4.0 * (B * d + K * d + K + 2 * B)}
+
+
+def _bwd_cost(sig):
+    (B, d) = sig[0][0]
+    K = sig[1][0][0]
+    return {"flops": float(B) * K * (5 * d + 6), "bytes": 4.0 * (2 * B * d + K * d + K + 2 * B)}
+
+
+def _walk_plan(sig) -> dict:
+    chunks, chunk_len = plan(sig[1][0][0])
+    return {"chunks": chunks, "chunk_len": chunk_len}
+
+
+for _name, _plain, _cuda, _inputs, _cost in (
+    ("cauchy_mean_fwd", cauchy_mean_fwd_plain, cauchy_mean_fwd_cuda, _fwd_inputs, _fwd_cost),
+    ("cauchy_mean_bwd", cauchy_mean_bwd_plain, cauchy_mean_bwd_cuda, _bwd_inputs, _bwd_cost),
+):
+    _entry, _candidates, _default_plan = registry.fixed_plan(_cuda, _walk_plan)
+    registry.register_spec(registry.KernelSpec(
+        name=_name, reference="cauchy_mean", plain=_plain, cuda=_entry, plan_candidates=_candidates,
+        default_plan=_default_plan, make_inputs=_inputs, check_shapes=CHECK_SHAPES, bench_shapes=BENCH_SHAPE,
+        tol=TOL, cost_model=_cost,
+    ))

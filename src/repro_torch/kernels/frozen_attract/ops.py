@@ -152,3 +152,53 @@ BWD = registry.register(
         replaces="src/repro/kernels/frozen_attract/frozen_attract.py:92",
     )
 )
+
+
+# ---------------------------------------------------------------------------
+# Registry specs: the JAX spec's shapes, tolerance and (forward) cost model.
+# The plan is :func:`plan`'s lanes a query, from k alone: it fixes the
+# order of each query's sums, so it is the only one offered.
+# ---------------------------------------------------------------------------
+
+
+def _sig(B, k, d, dt="float32"):
+    return (((B, d), dt), ((B, k, d), dt), ((B, k), dt), ((B,), dt))
+
+
+CHECK_SHAPES = (_sig(512, 15, 2), _sig(64, 8, 2), _sig(100, 5, 3), _sig(777, 15, 2))
+BENCH_SHAPE = _sig(2048, 15, 2)
+
+
+def _fwd_inputs(gen, sig):
+    (ts, tdt), (ns, _), (ws, _), (ms, _) = sig
+    return (registry.draw(gen, ts, tdt, scale=3.0), registry.draw(gen, ns, tdt, scale=3.0),
+            registry.draw(gen, ws, tdt, uniform=True), registry.draw(gen, ms, tdt, uniform=True) * 5.0)
+
+
+def _bwd_inputs(gen, sig):
+    th, nb, w, m = _fwd_inputs(gen, sig)
+    return th, nb, w, m, registry.draw(gen, (th.shape[0],), "float32")
+
+
+def _fwd_cost(sig):
+    (B, d) = sig[0][0]
+    k = sig[2][0][1]
+    return {"flops": float(B) * k * (3 * d + 12), "bytes": 4.0 * (B * d + B * k * d + B * k + 2 * B)}
+
+
+def _bwd_cost(sig):
+    (B, d) = sig[0][0]
+    k = sig[2][0][1]
+    return {"flops": float(B) * k * (5 * d + 14), "bytes": 4.0 * (2 * B * d + B * k * d + B * k + 4 * B)}
+
+
+for _name, _plain, _cuda, _inputs, _cost in (
+    ("frozen_attract_fwd", frozen_attract_fwd_plain, frozen_attract_fwd_cuda, _fwd_inputs, _fwd_cost),
+    ("frozen_attract_bwd", frozen_attract_bwd_plain, frozen_attract_bwd_cuda, _bwd_inputs, _bwd_cost),
+):
+    _entry, _candidates, _default_plan = registry.fixed_plan(_cuda, lambda sig: {"lanes": plan(sig[1][0][1])})
+    registry.register_spec(registry.KernelSpec(
+        name=_name, reference="frozen_attract", plain=_plain, cuda=_entry, plan_candidates=_candidates,
+        default_plan=_default_plan, make_inputs=_inputs, check_shapes=CHECK_SHAPES, bench_shapes=BENCH_SHAPE,
+        tol=TOL, cost_model=_cost,
+    ))

@@ -66,7 +66,21 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def assign_nearest_cuda(x: torch.Tensor, cents: torch.Tensor):
+def chunk_plan(k: int, chunks: int) -> tuple[int, int]:
+    """(chunks, chunk_cols) for a request of ``chunks`` chunks: whole tiles
+    a chunk, none empty. For :func:`plan`'s own chunk count it gives back
+    :func:`plan`'s split."""
+    col_tiles = -(-k // TILE)
+    per_block = -(-col_tiles // max(1, min(chunks, col_tiles)))
+    return -(-col_tiles // per_block), per_block * TILE
+
+
+def assign_nearest_cuda(x: torch.Tensor, cents: torch.Tensor, plan: dict | None = None):
+    """The kernel; ``plan`` ``{"chunks": c}`` splits the centroids into c
+    chunks, by default the autotuner's
+    (:func:`repro_torch.kernels.autotune.plan_for`: a cached winner, else
+    :func:`plan`'s for this card). Min and argmin are exact and the
+    partials reduce in chunk order, so every plan gives the same bits."""
     device = registry.require_cuda("kmeans_assign", x=x, cents=cents)
     registry.require_dtype("kmeans_assign", torch.float32, x=x, cents=cents)
     if x.dim() != 2 or cents.dim() != 2 or x.shape[1] != cents.shape[1]:
@@ -75,7 +89,11 @@ def assign_nearest_cuda(x: torch.Tensor, cents: torch.Tensor):
     k = cents.shape[0]
     if min(n, k, d) < 1:
         raise ValueError(f"kmeans_assign: empty input {tuple(x.shape)} × {tuple(cents.shape)}")
-    chunks, chunk_cols = plan(n, k, _sm_count(device))
+    if plan is None:
+        from repro_torch.kernels import autotune
+
+        plan = autotune.plan_for(SPEC, registry.shape_sig((x, cents)), device=device)
+    chunks, chunk_cols = chunk_plan(k, plan["chunks"])
     arg = torch.empty((n,), dtype=torch.int32, device=device)
     mind = torch.empty((n,), dtype=torch.float32, device=device)
     # per-(chunk, row) partials, only when the centroids are split
@@ -125,5 +143,59 @@ KERNEL = registry.register(
         cuda=assign_nearest_cuda,
         source="src/repro_torch/csrc/kmeans_assign.cu",
         replaces="src/repro/kernels/kmeans_assign/kmeans_assign.py:53",
+    )
+)
+
+
+# ---------------------------------------------------------------------------
+# Registry spec (the JAX spec's shapes, tolerance and cost model)
+# ---------------------------------------------------------------------------
+
+
+def _sig(n, k, d, dt="float32"):
+    return (((n, d), dt), ((k, d), dt))
+
+
+def plan_candidates(sig) -> tuple:
+    """Chunk counts 1, 2, 4, … up to one tile a chunk (at most 64), as
+    :func:`chunk_plan` makes them."""
+    k = sig[1][0][0]
+    col_tiles = -(-k // TILE)
+    counts = sorted({chunk_plan(k, 1 << i)[0] for i in range(7) if (1 << i) <= col_tiles})
+    return tuple({"chunks": c} for c in counts)
+
+
+def default_plan(sig, device=None) -> dict:
+    n, k = sig[0][0][0], sig[1][0][0]
+    # off the card (the CPU tests), an H100's 132 SMs stand in for the count
+    sms = _sm_count(device) if device is not None and torch.device(device).type == "cuda" else 132
+    return {"chunks": plan(n, k, sms)[0]}
+
+
+def _make_inputs(gen, sig):
+    (xs, xdt), (cs, cdt) = sig
+    return registry.draw(gen, xs, xdt), registry.draw(gen, cs, cdt)
+
+
+def _cost_model(sig):
+    (n, d) = sig[0][0]
+    k = sig[1][0][0]
+    return {"flops": 2.0 * n * k * d + 2.0 * n * k, "bytes": 4.0 * (n * d + k * d + 2 * n)}
+
+
+SPEC = registry.register_spec(
+    registry.KernelSpec(
+        name="kmeans_assign",
+        reference="kmeans_assign",
+        plain=assign_nearest_plain,
+        cuda=assign_nearest_cuda,
+        plan_candidates=plan_candidates,
+        default_plan=default_plan,
+        make_inputs=_make_inputs,
+        check_shapes=(_sig(512, 256, 64), _sig(1000, 17, 32), _sig(64, 512, 128), _sig(513, 255, 48)),
+        bench_shapes=_sig(4096, 256, 128),
+        tol=TOL,
+        oracle_check=lambda args, got, want: oracle_check(*args, got, want),
+        cost_model=_cost_model,
     )
 )

@@ -206,3 +206,65 @@ BWD = registry.register(
         replaces="src/repro/kernels/nomad_step/nomad_step.py:201",
     )
 )
+
+
+# ---------------------------------------------------------------------------
+# Registry specs: the JAX spec's shapes, tolerance and (forward) cost model.
+# The plan is the walk's split of the means, from K alone: it fixes the
+# order of each head's sums, so it is the only one offered.
+# ---------------------------------------------------------------------------
+
+
+def _sig(B, k, S, K, d, dt="float32"):
+    return (((B, d), dt), ((B, k, d), dt), ((B, k), dt), ((B, S, d), dt), ((B, S), dt), ((K, d), dt),
+            ((K,), dt), ((B,), "int32"))
+
+
+CHECK_SHAPES = (_sig(512, 15, 16, 64, 2), _sig(100, 5, 4, 33, 2), _sig(64, 3, 8, 100, 3), _sig(777, 15, 16, 130, 2))
+BENCH_SHAPE = _sig(2048, 15, 16, 1024, 2)
+
+
+def _fwd_inputs(gen, sig):
+    (ts, tdt), (ps, _), (ws, _), (ns, _), (nws, _), (ms, _), (cs, _), (os_, _) = sig
+    n = lambda shape: registry.draw(gen, shape, tdt, scale=3.0)  # noqa: E731
+    u = lambda shape: registry.draw(gen, shape, tdt, uniform=True)  # noqa: E731
+    return n(ts), n(ps), u(ws), n(ns), u(nws), n(ms), u(cs), registry.draw(gen, os_, "int32", high=ms[0])
+
+
+def _bwd_inputs(gen, sig):
+    """The backward's arguments at a forward signature: the residuals m and
+    far of the plain forward, ḡ = 1/B (the batch mean's cotangent)."""
+    th, pos, pw, neg, nw, mu, cw, own = _fwd_inputs(gen, sig)
+    _, m, far = nomad_step_fwd_plain(th, pos, pw, neg, nw, mu, cw, own, want_far=True)
+    return th, pos, pw, neg, nw, m, far, torch.full((th.shape[0],), 1.0 / th.shape[0], device=th.device)
+
+
+def _fwd_cost(sig):
+    (B, d) = sig[0][0]
+    k, S, K = sig[2][0][1], sig[4][0][1], sig[5][0][0]
+    flops = float(B) * (K * (3 * d + 4) + (k + S) * (3 * d + 12))
+    return {"flops": flops, "bytes": 4.0 * (B * d + B * k * d + B * k + B * S * d + B * S + K * d + K + B + 2 * B)}
+
+
+def _bwd_cost(sig):
+    (B, d) = sig[0][0]
+    k, S = sig[2][0][1], sig[4][0][1]
+    return {"flops": float(B) * (k + S) * (8 * d + 8),
+            "bytes": 4.0 * (2 * (B * d + B * k * d + B * S * d) + B * k + B * S + B * (2 + d))}
+
+
+def _walk_plan(sig) -> dict:
+    chunks, chunk_len = plan(sig[5][0][0])
+    return {"chunks": chunks, "chunk_len": chunk_len}
+
+
+for _name, _plain, _cuda, _inputs, _cost, _default in (
+    ("nomad_step_fwd", nomad_step_fwd_plain, nomad_step_fwd_cuda, _fwd_inputs, _fwd_cost, _walk_plan),
+    ("nomad_step_bwd", nomad_step_bwd_plain, nomad_step_bwd_cuda, _bwd_inputs, _bwd_cost, None),
+):
+    _entry, _candidates, _default_plan = registry.fixed_plan(_cuda, _default)
+    registry.register_spec(registry.KernelSpec(
+        name=_name, reference="nomad_step", plain=_plain, cuda=_entry, plan_candidates=_candidates,
+        default_plan=_default_plan, make_inputs=_inputs, check_shapes=CHECK_SHAPES, bench_shapes=BENCH_SHAPE,
+        tol=TOL, cost_model=_cost,
+    ))

@@ -60,7 +60,12 @@ def tile_for(n: int, m: int) -> int:
     return 128 if padded(128) <= 1.125 * padded(64) else 64
 
 
-def pairwise_dist2_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def pairwise_dist2_cuda(x: torch.Tensor, y: torch.Tensor, plan: dict | None = None) -> torch.Tensor:
+    """The kernel. The route is the shape's (:func:`route`); on the tile
+    route ``plan`` ``{"tile": 64 | 128}`` picks the block tile, by default
+    the autotuner's (:func:`repro_torch.kernels.autotune.plan_for`: a
+    cached winner, else :func:`tile_for`'s). Each output's sum over D runs
+    in the same order under both tiles, so the plan never changes a bit."""
     device = registry.require_cuda("pairwise", x=x, y=y)
     registry.require_dtype("pairwise", torch.float32, x=x, y=y)
     if x.dim() != y.dim() or x.dim() not in (2, 3):
@@ -72,7 +77,13 @@ def pairwise_dist2_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if yb.shape[0] != bsz or yb.shape[2] != d:
         raise ValueError(f"pairwise: mismatched shapes {tuple(x.shape)} × {tuple(y.shape)}")
     way = route(bsz, n, m, d)
-    tile = tile_for(n, m) if way == "tile" else 0
+    if plan is None and way == "tile":
+        from repro_torch.kernels import autotune
+
+        plan = autotune.plan_for(SPEC, registry.shape_sig((x, y)), device=device)
+    if plan and plan.get("tile") not in (64, 128):
+        raise ValueError(f"pairwise: plan {plan}, want {{}} or a tile of 64 or 128")
+    tile = ((plan or {}).get("tile") or tile_for(n, m)) if way == "tile" else 0
     if min(bsz, n, m, d) < 1 or bsz > GRID_YZ or (way == "tile" and -(-m // tile) > GRID_YZ):
         raise ValueError(f"pairwise: shape {tuple(x.shape)} × {tuple(y.shape)} outside the kernel's grid")
     out = torch.empty((bsz, n, m), dtype=torch.float32, device=device)
@@ -109,5 +120,70 @@ KERNEL = registry.register(
         cuda=pairwise_dist2_cuda,
         source="src/repro_torch/csrc/pairwise.cu",
         replaces="src/repro/kernels/pairwise/pairwise.py:59",
+    )
+)
+
+
+# ---------------------------------------------------------------------------
+# Registry spec (the JAX spec's shapes, tolerance and cost model)
+# ---------------------------------------------------------------------------
+
+
+def _sig(n, m, d, dt="float32"):
+    return (((n, d), dt), ((m, d), dt))
+
+
+def _dims(sig):
+    (xs, _), (ys, _) = sig
+    return (1,) * (3 - len(xs)) + tuple(xs[:-2]) + (xs[-2], ys[-2], xs[-1])  # (batch, n, m, d)
+
+
+def plan_candidates(sig) -> tuple:
+    """The tile route's two block tiles; the row route has one plan (it and
+    the tile route add in different orders, so they are not swept)."""
+    b, n, m, d = _dims(sig)
+    return ({},) if route(b, n, m, d) == "row" else ({"tile": 64}, {"tile": 128})
+
+
+def default_plan(sig, device=None) -> dict:
+    b, n, m, d = _dims(sig)
+    return {} if route(b, n, m, d) == "row" else {"tile": tile_for(n, m)}
+
+
+def _make_inputs(gen, sig):
+    (xs, xdt), (ys, ydt) = sig
+    return registry.draw(gen, xs, xdt), registry.draw(gen, ys, ydt)
+
+
+def _oracle_check(args, got, want):
+    """The spec's (rtol, atol); at D ≥ 768 :func:`allowed_error` as well."""
+    x, y = args
+    bound = SPEC_TOL[1] + SPEC_TOL[0] * want.abs()
+    if x.shape[-1] >= 768:
+        bound = torch.maximum(bound, allowed_error(x, y))
+    err = (got - want).abs()
+    if not bool(torch.all(err <= bound)):
+        raise AssertionError(f"pairwise: max |Δ| {float(err.max())} past the bound")
+
+
+def _cost_model(sig):
+    _b, n, m, d = _dims(sig)
+    return {"flops": 2.0 * n * m * d + 4.0 * n * m, "bytes": 4.0 * (n * d + m * d + n * m)}
+
+
+SPEC = registry.register_spec(
+    registry.KernelSpec(
+        name="pairwise",
+        reference="pairwise",
+        plain=pairwise_dist2_plain,
+        cuda=pairwise_dist2_cuda,
+        plan_candidates=plan_candidates,
+        default_plan=default_plan,
+        make_inputs=_make_inputs,
+        check_shapes=(_sig(96, 128, 64), _sig(100, 60, 33), _sig(8, 257, 128), _sig(64, 64, 16, "bfloat16")),
+        bench_shapes=_sig(1024, 1024, 256),
+        tol=SPEC_TOL,
+        oracle_check=_oracle_check,
+        cost_model=_cost_model,
     )
 )

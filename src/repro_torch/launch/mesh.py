@@ -19,6 +19,11 @@ process it is a reordering. Either way every slot receives every slot's
 tensor, in the mesh's slot order, so what a slot computes depends on its
 place in the mesh and never on which process runs it.
 
+A placement spec :class:`P` names, for each dimension of a global tensor,
+the axes it is split over; :func:`local_block` cuts a slot's block of it
+and :func:`assemble` puts the blocks back (``sharding.py`` holds the
+per-architecture rules that choose the specs).
+
 Functions, never module-level meshes: importing this module touches no
 device and no process group.
 """
@@ -26,7 +31,7 @@ device and no process group.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -156,6 +161,56 @@ class Mesh:
                 out[i] = parts[r][j]
         return out
 
+    def group(self, i: int, axes) -> list:
+        """Flat indices of the slots a collective over ``axes`` joins with
+        slot ``i``: those that share its coordinates on every other axis,
+        in mesh order (row-major over the mesh's axes)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        keep = [a for a in self.axis_names if a not in axes]
+        c = self.coords(i)
+        return [j for j in range(self.size) if all(self.coords(j)[a] == c[a] for a in keep)]
+
+    def reduce(self, full: Sequence[torch.Tensor], axes, op: str = "sum", at=None) -> list:
+        """Each slot's combination over its :meth:`group` of ``full`` (every
+        slot's tensor, in flat slot order): a sum added in mesh order,
+        ``((t0 + t1) + t2) + …``, or an elementwise max. The slots of
+        ``at`` (default: all), in that order. One group's answer is the
+        same tensor for each of its slots, whichever processes hold them,
+        so slots that must agree after a ``psum`` agree bit for bit."""
+        if op not in ("sum", "max"):
+            raise ValueError(f"reduce op {op!r}: want 'sum' or 'max'")
+        done: dict = {}
+        out = []
+        for i in range(self.size) if at is None else at:
+            g = tuple(self.group(i, axes))
+            if g not in done:
+                acc = full[g[0]]
+                for j in g[1:]:
+                    t = full[j].to(acc.device)
+                    acc = acc + t if op == "sum" else torch.maximum(acc, t)
+                done[g] = acc
+            out.append(done[g])
+        return out
+
+    def psum(self, local: Sequence[torch.Tensor], axes) -> list:
+        """``jax.lax.psum`` over ``axes`` for this process's slots: their
+        group sums, added in mesh order (:meth:`reduce`)."""
+        return self.reduce(self.all_gather(local), axes, "sum", self.local_indices())
+
+    def shift(self, local: Sequence[torch.Tensor], axis: str, offset: int = 1) -> list:
+        """``jax.lax.ppermute`` by ``offset`` along ``axis`` (cyclic): the
+        slot at coordinate c receives the tensor of the slot at c − offset,
+        its other coordinates the same. For this process's slots."""
+        full = self.all_gather(local)
+        n = self.shape[axis]
+        out = []
+        for i in self.local_indices():
+            c = self.coords(i)
+            c[axis] = (int(c[axis]) - offset) % n
+            out.append(full[int(np.ravel_multi_index(tuple(int(c[a]) for a in self.axis_names),
+                                                     self.devices.shape))])
+        return out
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {self.slots})"
 
@@ -174,9 +229,110 @@ def make_mesh(shape, axes, devs=None, *, device=None) -> Mesh:
     return Mesh(grid.reshape(shape), axes)
 
 
+def make_production_mesh(*, multi_pod: bool = False, devs=None, device=None) -> Mesh:
+    """The reference's production mesh: (16, 16) over (``data``,
+    ``model``), or (2, 16, 16) over (``pod``, ``data``, ``model``) when
+    ``multi_pod``, from the slots of ``devs`` (default: the global pool on
+    ``device``). Raises as :func:`make_mesh` does when the pool is short."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devs, device=device)
+
+
 def flat_mesh(axis: str = "data", devs=None, *, device=None) -> Mesh:
     """One flat axis over ``devs`` (default: the global pool on
     ``device``), never just this process's slots: a mesh of local slots
     alone would compute a per-process answer with no exchange."""
     pool = list(devs) if devs is not None else devices(device)
     return make_mesh((len(pool),), (axis,), pool)
+
+
+# ---------------------------------------------------------------------------
+# Placement specs: a slot's block of a global tensor
+# ---------------------------------------------------------------------------
+
+
+class P(tuple):
+    """A placement spec: ``P("data", None)``, ``P(("pod", "data"), "model")``.
+    One entry per dimension; a plain tuple otherwise. A one-axis tuple
+    entry is its axis (``("data",)`` → ``"data"``), as JAX writes it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def axis_size(mesh, entry) -> int:
+    """Slots a spec entry splits a dimension into (1 for None)."""
+    if entry is None:
+        return 1
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    return int(np.prod([mesh.shape[a] for a in axes]))
+
+
+def _coords(mesh, slot: int) -> dict:
+    return dict(zip(mesh.shape, np.unravel_index(int(slot), tuple(mesh.shape.values()))))
+
+
+def block_range(mesh, entry, slot: int, n: int) -> tuple:
+    """[start, stop) of slot ``slot``'s block of a length-``n`` dimension
+    split by ``entry`` (its axes folded first-outermost, as JAX folds a
+    tuple entry); ``n`` must divide."""
+    parts = axis_size(mesh, entry)
+    if n % parts:
+        raise ValueError(f"dimension {n} does not split into {parts} blocks over {entry}")
+    if entry is None:
+        return 0, n
+    c = _coords(mesh, slot)
+    at = 0
+    for a in entry if isinstance(entry, tuple) else (entry,):
+        at = at * mesh.shape[a] + int(c[a])
+    size = n // parts
+    return at * size, (at + 1) * size
+
+
+def local_block(t: torch.Tensor, spec: Sequence, mesh, slot: int) -> torch.Tensor:
+    """Slot ``slot``'s block (flat slot index) of the global tensor ``t``
+    under ``spec``: a view, exact. Missing trailing entries are None."""
+    if len(spec) > t.dim():
+        raise ValueError(f"spec {spec} for a {t.dim()}-d tensor")
+    for dim, entry in enumerate(spec):
+        lo, hi = block_range(mesh, entry, slot, t.shape[dim])
+        if hi - lo != t.shape[dim]:
+            t = t.narrow(dim, lo, hi - lo)
+    return t
+
+
+def without(spec: Sequence, axis: Optional[str]) -> P:
+    """``spec`` with ``axis`` taken out of every entry: the block an
+    all-gather over ``axis`` leaves each slot (zero-3's weight gather)."""
+    if axis is None:
+        return P(*spec)
+    out = []
+    for e in spec:
+        if isinstance(e, tuple):
+            e = tuple(a for a in e if a != axis) or None
+            e = e[0] if isinstance(e, tuple) and len(e) == 1 else e
+        elif e == axis:
+            e = None
+        out.append(e)
+    return P(*out)
+
+
+def assemble(blocks: Sequence[torch.Tensor], spec: Sequence, mesh, shape) -> torch.Tensor:
+    """The global tensor of ``shape`` whose :func:`local_block` under
+    ``spec`` is ``blocks[i]`` for every flat slot i (the inverse of the
+    cut; slots that hold one block must hold equal blocks, and the first
+    of them is taken). On the first block's device."""
+    shape = tuple(int(s) for s in shape)
+    out = torch.empty(shape, dtype=blocks[0].dtype, device=blocks[0].device)
+    seen = set()
+    for i, b in enumerate(blocks):
+        ranges = tuple(block_range(mesh, spec[d] if d < len(spec) else None, i, shape[d]) for d in range(len(shape)))
+        if ranges in seen:
+            continue
+        seen.add(ranges)
+        out[tuple(slice(lo, hi) for lo, hi in ranges)] = b.to(out.device)
+    return out

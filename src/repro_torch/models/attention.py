@@ -22,8 +22,10 @@ and against the JAX functions):
 * ``attend_decode``   — one query against a cache (B, Sc, KV, hd), scored
   per kv group (q as (B, KV, g, hd)) so the cache is never repeated to H
   heads; the same products and float32 sums as the reference's
-  ``repeat_kv`` form. The reference's length-sharded
-  ``attend_decode_sharded`` waits for multi-GPU.
+  ``repeat_kv`` form.
+* ``attend_decode_sharded`` — the cache's length split over shard slots
+  (``set_decode_context``): each slot attends over its block and the
+  (o, m, l) statistics are combined, the flash-decode reduction.
 
 Both compute as the reference writes them: scores of bf16 operands
 accumulated in float32 (the reference's ``preferred_element_type``), the
@@ -40,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import P, assemble, local_block
 from repro_torch.models.layers import apply_rope, dtype_of, frozen, normal, rms_norm
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
@@ -321,9 +324,51 @@ def attend_decode(q, k_cache, v_cache, q_pos, k_pos, valid, *, window: int = 0):
     return o / torch.clamp_min(l, 1e-37).transpose(1, 2)[..., None]
 
 
+# --- the length-sharded flash-decode over a mesh of shard slots ------------
+# Each slot keeps its block of the cache's length and returns its
+# unnormalised (o, m, l); the global max is taken over the length axes, and
+# l and o are rescaled and summed over them in mesh order
+# (``launch/mesh.py:Mesh.reduce``), so a few (B, H) statistics cross slots,
+# never the cache.
+
+_DECODE_CTX: "tuple | None" = None  # (mesh, batch_axes, s_axes)
+
+
+def set_decode_context(mesh, batch_axes, s_axes) -> None:
+    """Send :func:`dispatch_attend_decode` to :func:`attend_decode_sharded`
+    on ``mesh`` (None turns it off): the cache's batch over ``batch_axes``
+    (None: every slot holds the whole batch, as a batch-1 long-context
+    decode does), its length over ``s_axes``."""
+    global _DECODE_CTX
+    _DECODE_CTX = None if mesh is None else (mesh, batch_axes, tuple(s_axes))
+
+
+def attend_decode_sharded(q, k_cache, v_cache, q_pos, k_pos, valid, *, window: int = 0):
+    """:func:`attend_decode` with the cache's length split over the
+    context's slots. Global view in and out: q (B, 1, H, hd), caches
+    (B, Sc, KV, hd), k_pos and valid (B, Sc); Sc must split evenly."""
+    mesh, baxes, saxes = _DECODE_CTX
+    parts = []
+    for i in mesh.local_indices():
+        cut = lambda t, *spec: local_block(t, P(baxes, *spec), mesh, i)  # noqa: E731
+        parts.append(_decode_local(cut(q, None, None, None), cut(k_cache, saxes, None, None),
+                                   cut(v_cache, saxes, None, None), cut(q_pos, None), cut(k_pos, saxes),
+                                   cut(valid, saxes), window))
+    ids = mesh.local_indices()
+    g_m = mesh.reduce(mesh.all_gather([m for _o, m, _l in parts]), saxes, "max")
+    corr = [torch.exp(m - g_m[i]) for i, (_o, m, _l) in zip(ids, parts)]
+    l_all = mesh.reduce(mesh.all_gather([l * c for (_o, _m, l), c in zip(parts, corr)]), saxes)
+    o_all = mesh.reduce(mesh.all_gather([o * c.transpose(1, 2)[..., None].to(o.dtype)
+                                         for (o, _m, _l), c in zip(parts, corr)]), saxes)
+    out = [o / torch.clamp_min(l, 1e-37).transpose(1, 2)[..., None].to(o.dtype) for o, l in zip(o_all, l_all)]
+    return assemble(out, P(baxes, None, None, None), mesh, q.shape).to(q.device)
+
+
 def dispatch_attend_decode(q, k_cache, v_cache, q_pos, k_pos, valid, *, window: int = 0):
-    """The reference's dispatch on one device: :func:`attend_decode` (the
-    length-sharded decode waits for multi-GPU)."""
+    """:func:`attend_decode_sharded` when a decode context is set, else
+    :func:`attend_decode` (the reference's dispatch)."""
+    if _DECODE_CTX is not None:
+        return attend_decode_sharded(q, k_cache, v_cache, q_pos, k_pos, valid, window=window)
     return attend_decode(q, k_cache, v_cache, q_pos, k_pos, valid, window=window)
 
 

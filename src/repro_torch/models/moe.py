@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN: top-k routing with capacity, GShard-style (port
-of the JAX package's ``models/moe.py``; the expert-parallel branch waits
-for multi-GPU).
+of the JAX package's ``models/moe.py``, its expert-parallel dispatch over a
+mesh of shard slots included).
 
 Routing follows GShard/Switch: softmax router in fp32, top-k experts per
 token, per-expert position via a cumulative sum, tokens beyond capacity are
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import types
 from typing import Callable
 
 import numpy as np
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.index.knn import smallest_k_by_sort
+from repro_torch.launch.mesh import P, assemble, local_block, without
 from repro_torch.models.layers import dtype_of, frozen, init_swiglu, leaf_dtype, normal
 
 
@@ -218,10 +220,150 @@ def load_balance_loss(probs: torch.Tensor, expert_of: torch.Tensor, n_experts: i
     return n_experts * torch.sum(f * P)
 
 
+# ---------------------------------------------------------------------------
+# Expert-parallel dispatch over a mesh of shard slots
+# ---------------------------------------------------------------------------
+# The reference's shard_map block: each (data i, model j) slot dispatches
+# locally. It takes its token block, routes it, keeps its capacity
+# positions, selects the tokens routed to the experts it holds, runs them
+# and scatters back; one sum over ``model`` completes the combine.
+#
+# E % model == 0  → true EP (E/model experts a slot, the full F);
+# model % E == 0  → every slot runs all experts on its columns of F
+#                   (exact in real arithmetic: SwiGLU is elementwise in F;
+#                   the sum adds the column partials).
+#
+# The partials are all-gathered and added in mesh order
+# (``launch/mesh.py:Mesh.reduce``), so the answer does not depend on which
+# processes hold the slots. With top-k ≤ 2 and one token block (data 1) a
+# token's output is at most two nonzero terms, so true EP equals
+# :func:`moe_sort` bit for bit.
+
+_EP_MESH: "tuple | None" = None  # (mesh, dp_axes, token_axes, model_axis, stationary)
+
+
+def set_ep_mesh(mesh, dp_axes, token_axes=..., model_axis: str = "model", stationary: bool = False) -> None:
+    """Send ``moe_block``'s ``"ep"`` and ``"sort"`` dispatch to
+    :func:`moe_ep` on ``mesh`` (None turns it off). ``token_axes``: the
+    mesh axes of the batch dim (None: tokens replicated, e.g. batch-1
+    decode); default ``dp_axes``. ``dp_axes`` names the FSDP axis the
+    expert weights' d_model dim is split over (gathered back before use).
+
+    ``stationary`` (serving the 100B+ MoE archs): weights never move.
+    Experts split E over ``model`` and F over the last of ``dp_axes``; the
+    token batch is replicated to every slot, each slot computes its
+    (experts, F slice) partials, and one sum over (model, data) combines."""
+    global _EP_MESH
+    if mesh is None:
+        _EP_MESH = None
+        return
+    if token_axes is ...:
+        token_axes = tuple(dp_axes)
+    _EP_MESH = (mesh, tuple(dp_axes), token_axes, model_axis, stationary)
+
+
+def _ep_weight_specs(cfg, msize: int, fsdp):
+    """(w_gate/w_up spec, w_down spec, true EP?) of the expert weights."""
+    if cfg.n_experts % msize == 0:
+        return P("model", fsdp, None), P("model", None, fsdp), True
+    if msize % cfg.n_experts:
+        raise ValueError(f"{cfg.n_experts} experts on a model axis of {msize}: neither divides the other")
+    return P(None, fsdp, "model"), P(None, "model", fsdp), False
+
+
+def _ep_slot(x_loc, router, wg, wu, wd, cfg, e0: int, E_loc: int, true_ep: bool, report: bool):
+    """One slot's block: (its partial y (T_loc, D), its aux loss)."""
+    B_loc, S, D = x_loc.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B_loc * S
+    C = expert_capacity(T, E, k, cfg.capacity_factor)
+    x_flat = x_loc.reshape(T, D)
+    probs, gate, idx = _route(x_flat, types.SimpleNamespace(router=router), k)
+    pos_tok, keep = capacity_positions(idx, E, C)
+    if report:
+        _report_routes(probs, idx, keep)
+    gate = gate * keep.to(gate.dtype)
+    spare = E_loc * C
+    if true_ep:  # only this slot's experts
+        mine = (idx >= e0) & (idx < e0 + E_loc)
+        slot = torch.where(keep & mine, (idx - e0) * C + pos_tok, spare)
+    else:  # every slot runs all experts on its F columns
+        slot = torch.where(keep, idx * C + pos_tok, spare)
+    dest = slot.reshape(-1)
+    tok_ids = torch.arange(T, device=x_loc.device)[:, None].expand(T, k).reshape(-1)
+    slot_to_tok = torch.zeros(spare + 1, dtype=torch.int64, device=x_loc.device).index_put_((dest,), tok_ids)[:spare]
+    filled = torch.zeros(spare + 1, dtype=torch.bool, device=x_loc.device).index_put_(
+        (dest,), torch.ones((), dtype=torch.bool, device=x_loc.device))[:spare]
+    xe = x_flat[slot_to_tok.reshape(E_loc, C)] * filled.reshape(E_loc, C, 1).to(x_loc.dtype)
+    h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+    ye = torch.bmm(h, wd).reshape(spare, D)  # a partial over F unless true EP
+    used = slot < spare
+    contrib = ye[torch.where(used, slot, 0)] * gate.to(ye.dtype)[..., None]  # (T, k, D)
+    contrib = torch.where(used[..., None], contrib, torch.zeros((), dtype=ye.dtype, device=x_loc.device))
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    return y, load_balance_loss(probs, idx, E)
+
+
+def moe_ep(p: MoEParams, x: torch.Tensor, cfg):
+    """:func:`moe_sort` over the mesh set by :func:`set_ep_mesh`. Global
+    view in and out: x (B, S, D) → (y (B, S, D), aux), so ``lm.forward``
+    and ``decode_step`` reach it unchanged. This process runs its own
+    slots on their blocks (:func:`repro_torch.launch.mesh.local_block`
+    under the reference's specs); the partials are summed over ``model``
+    (stationary: ``model`` and ``data``) in mesh order; the aux loss is
+    the mean over the token axes; the shared expert is added after the
+    combine."""
+    mesh, dp_axes, token_axes, maxis, stationary = _EP_MESH
+    msize = mesh.shape[maxis]
+    E, D = cfg.n_experts, cfg.d_model
+    fsdp = dp_axes[-1] if dp_axes else None
+    if stationary:
+        if fsdp is None or E % msize:
+            raise ValueError(f"the stationary layout needs a data axis and E % model == 0, got {E} on {msize}")
+        gu_spec, d_spec, true_ep = P("model", None, fsdp), P("model", fsdp, None), True
+        gathered = None  # the weights stay split over data too
+        x_spec = P(None, None, None)
+        sum_axes = (maxis, fsdp)
+    else:
+        gu_spec, d_spec, true_ep = _ep_weight_specs(cfg, msize, fsdp)
+        gathered = fsdp  # zero-3: each slot gathers the FSDP split back
+        x_spec = P(token_axes, None, None) if token_axes else P(None, None, None)
+        sum_axes = (maxis,)
+    gu_spec, d_spec = without(gu_spec, gathered), without(d_spec, gathered)
+    E_loc = E // msize if true_ep else E
+    ys, auxes = [], []
+    for i in mesh.local_indices():
+        c = mesh.coords(i)
+        e0 = int(c[maxis]) * E_loc if true_ep else 0
+        report = int(c[maxis]) == 0 and (not stationary or i == 0)  # each token block's routes once
+        y, aux = _ep_slot(local_block(x, x_spec, mesh, i), p.router, local_block(p.w_gate, gu_spec, mesh, i),
+                          local_block(p.w_up, gu_spec, mesh, i), local_block(p.w_down, d_spec, mesh, i),
+                          cfg, e0, E_loc, true_ep, report)
+        ys.append(y.reshape(-1, x.shape[1], D))
+        auxes.append(aux)
+    y = assemble(mesh.reduce(mesh.all_gather(ys), sum_axes), x_spec, mesh, x.shape).to(x.device)
+    aux_all = mesh.all_gather(auxes)
+    if token_axes:
+        group = mesh.group(0, token_axes)
+        aux = mesh.reduce(aux_all, token_axes, at=[0])[0] / torch.full((), float(len(group)), device=aux_all[0].device)
+    else:
+        aux = aux_all[0]
+    if p.shared is not None:
+        B, S, _ = x.shape
+        y = y + p.shared(x.reshape(B * S, D)).reshape(B, S, D)
+    return y, aux.to(x.device)
+
+
 def moe_block(p: MoEParams, x: torch.Tensor, cfg, dispatch: str | None = None):
     dispatch = dispatch or getattr(cfg, "moe_dispatch", "sort")
+    if _EP_MESH is not None and dispatch in ("ep", "sort"):
+        return moe_ep(p, x, cfg)
     if dispatch == "sort":
         return moe_sort(p, x, cfg)
     if dispatch == "einsum":
         return moe_einsum(p, x, cfg)
-    raise ValueError(f"unknown MoE dispatch {dispatch!r} (want 'sort'|'einsum'; 'ep' waits for multi-GPU)")
+    if dispatch == "ep":
+        raise ValueError("MoE dispatch 'ep' needs a mesh: call set_ep_mesh first")
+    raise ValueError(f"unknown MoE dispatch {dispatch!r} (want 'sort'|'einsum'|'ep')")

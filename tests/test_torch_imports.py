@@ -52,8 +52,13 @@ def test_import_loads_no_jax_and_no_repro():
         "from repro_torch.index.build import resolve_build_strategy\n"
         "from repro_torch.index.kmeans import kmeans_fit_sharded\n"
         "from repro_torch.launch.mesh import Mesh, make_mesh\n"
+        "import repro_torch.launch.sharding, repro_torch.launch.pipeline, repro_torch.optim.compression\n"
+        "import repro_torch.launch.selftest, repro_torch.launch.selftest_pipeline, repro_torch.kernels.autotune\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "from repro_torch.models.moe import set_ep_mesh, moe_ep\n"
+        "from repro_torch.models.attention import set_decode_context, attend_decode_sharded\n"
         "from repro_torch.kernels import registry\n"
-        "registry.names()  # imports every kernel module\n"
+        "registry.names(), registry.spec_names()  # imports every kernel module\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -297,7 +297,7 @@ def test_fit_distributed_shim_is_deprecated(data, index):
 
     cfg = CFG.replace(n_epochs=2)
     with pytest.warns(DeprecationWarning, match="fit_distributed"):
-        emb, idx, losses = fit_distributed(cfg, data, _flat(), index=index, device="cpu")
+        emb, idx, losses = fit_distributed(cfg, data, _flat(), shard_axes=("data",), index=index, device="cpu")
     want = NomadProjection(cfg, strategy="sharded", mesh=_flat(), device="cpu").fit(data, index=index)
     np.testing.assert_array_equal(emb, want.embedding)
     assert losses == want.losses and idx is index
