@@ -81,7 +81,7 @@ Phases, each fatal on failure:
    sequence) and the last step on the card within 1e-4 of the port's CPU
    step from the same cache. Then Phi-4-mini at full depth (the pipeline
    phase's seeded weights, bf16) prefills 16 prompts of 2,048 tokens (two
-   attention chunks) and decodes 256 greedy tokens into a cache of 2,304:
+   attention chunks) and decodes 128 greedy tokens into a cache of 2,176:
    prefill wall, tokens/s and TFLOP/s against the bf16 peak, each step's
    CUDA-event ms (p50, p99), decode tokens/s, one step's busy share, the
    step's bytes bound (weights + the cache read at 3.35 TB/s), peak device
@@ -128,7 +128,17 @@ Phases, each fatal on failure:
    the uninterrupted run's bit for bit; then on the same data
    ``build_index(x, cfg)`` ≡ ``IndexBuilder(cfg).build(x)`` bit for bit and
    ``kmeans_fit`` (K2 launched, its assignment the plain nearest centroid
-   of its centroids on ≥ 0.99 of the rows, counts its bincount);
+   of its centroids on ≥ 0.99 of the rows, counts its bincount); then its
+   mesh leg (``launch_mesh_leg``, 131,072 rows) on 4 shard slots of the
+   card: ``--host-devices 4 --mesh 2x2`` and ``--mesh 2x1x2
+   --hierarchical`` in process (the mesh line; K1-K3's launches the
+   ``launch_mesh`` path's counts), each ≡ the in-process
+   ``ShardedStrategy`` / ``HierarchicalStrategy`` fit on the same slots bit
+   for bit, a 2×2 child crashed at epoch 3 and one resumed ≡ the
+   uninterrupted run bit for bit, K2 and K3 against their plain versions
+   at every call of each strategy fit's 4-slot build
+   (``checked_build_kernels``), and K1 against its plain version at a 2×2
+   slot's own step inputs (``check_sharded_k1``);
 12. the multi-GPU NOMAD side (``sharded_path``) on 4 shard slots of the
    card: the sharded build, fits and serving ≡ local where the reference
    promises it, and the NCCL launcher at world size 1;
@@ -147,12 +157,23 @@ Phases, each fatal on failure:
    path's shapes, ``validate`` of every spec, the cache's round trip (K3's
    wrapper, called without a plan, running the cached tile), no launch
    counted;
-15. the dry run (``dryrun_check``): ``launch.dryrun.run_lm_cell`` on meta
-   tensors of the train phase's Phi-4-mini cell (8 × 4,096 tokens, accum 4,
-   remat full, flash, int8 moments) and the decode phase's Phi-4-mini
-   step: the predicted ``per_device_total`` beside the measured peaks
-   (reported), and the op counter's matrix-product FLOPs beside
-   ``train_flops``' hardware count, within 5% (the gate);
+15. the dry run, traced on meta tensors in one CPU-only child
+   (``start_dryruns``) that runs beside the train phase, whose Phi-4-mini
+   steps are device-bound: ``dryrun_check``, the train phase's Phi-4-mini
+   cell (8 × 4,096 tokens, accum 4, remat full, flash, int8 moments) and
+   the decode phase's Phi-4-mini step on one card, the predicted
+   ``per_device_total`` beside the measured peaks (reported) and the op
+   counter's matrix-product FLOPs beside ``train_flops``' hardware count,
+   within 5% (the gate); and ``dryrun_mesh_check``, Phi-4-mini
+   ``train_4k`` on ``pod16x16``, Mixtral ``decode_32k`` on ``pod2x16x16``
+   and ``nomad_pubmed`` on both, at full widths and depth, each record ok
+   and finite with a card's GiB against 80 GB, its terms and its
+   collective bytes by type (> 0 in the LM cells); then the examples'
+   twins (``examples_path``): ``examples/quickstart_torch.py`` and
+   ``serve_map_torch.py`` at their references' CI points on the card, each
+   ending on ``OK``, K1-K5 launched (the ``examples`` path's counts), then
+   every kernel against its plain version on each example's own fit, map
+   and queries (``check_path_kernels``);
 16. a checkpoint round trip at the small fit's size: fit with
    ``checkpoint_dir`` (saved by the asynchronous writer),
    ``NomadProjection.from_checkpoint(dir).transform``
@@ -184,6 +205,7 @@ CONFIG`` is the stream phase's own entry for its child processes.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -2419,7 +2441,7 @@ def pipeline_path(device) -> dict:
 
 DECODE_BATCH = 16
 DECODE_PROMPT = 2_048  # Phi-4-mini: two attention chunks of 1024; Mamba-2: eight SSD chunks of 256
-DECODE_NEW = 256  # greedy decode steps after the prefill's own next token
+DECODE_NEW = 128  # greedy decode steps after the prefill's own next token
 DECODE_MAMBA = "mamba2-2.7b"
 # fp32 decode against the full forward, and the card's step against the
 # CPU's, ‖Δ logits‖/‖logits‖ a sequence: both sum in float32 over D =
@@ -3307,13 +3329,20 @@ LAUNCH_REDUCED = [
     f"data: hierarchical_mixture({LAUNCH_N:,}, 768, seed 0), the launcher's own, in place of PubMed BERT vectors",
 ]
 DRYRUN_FLOP_REL = 0.05  # the op counter's matrix-product FLOPs against train_flops' hardware count
+LAUNCH_MESH_N = 131_072  # the launcher's mesh leg: four fits and two children on 4 slots of the card
+LAUNCH_MESHES = {"2x2": ["--mesh", "2x2"], "2x1x2": ["--mesh", "2x1x2", "--hierarchical"]}
+LAUNCH_MESH_K1_SLOT = 3  # K1 held at this slot's own step inputs (2x2: cells 3,072-4,095)
+LAUNCH_MESH_REDUCED = [
+    f"n_points 24,000,000 -> {LAUNCH_MESH_N:,} (four in-process fits and a crash and a resume child on 4 slots "
+    "of the card)",
+    "the crash and the resume on the 2x2 mesh only; 2x1x2 hierarchical: the uninterrupted run",
+]
 
 
 def _launcher(argv, *, in_process: bool, module: str = "repro_torch.launch.train"):
     """One run of ``python -m <module> argv``: (return code, stdout, wall
     s, the fit's stage times). In process through the module's ``main``
     (stdout captured), else a child process."""
-    import contextlib
     import importlib
     import io
 
@@ -3433,9 +3462,158 @@ def launch_path(device) -> dict:
         if not km_launches["kmeans_assign"] or share < LAUNCH_ASSIGN_MIN or not counts_ok:
             raise AssertionError(f"kmeans_fit: {out['kmeans_fit']}")
         del xd, plain, d_k2, d_plain
+        t0 = time.perf_counter()
+        out["mesh"] = launch_mesh_leg(device, work)
+        out["mesh"]["leg_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+@contextlib.contextmanager
+def checked_build_kernels(out: dict):
+    """While the block runs, K2 and K3 against their plain versions at
+    every call of the index build, on that call's own arguments: the
+    build's names for them (``index.kmeans.assign_nearest``,
+    ``index.build.pairwise_dist2``, ``index.knn.pairwise_dist2``) are
+    wrapped so each call's output, as it returns, is held to the plain
+    version (K2 by :func:`k2_check_scaled`, K3 by ``allowed_error``); a
+    disagreement is fatal. ``out`` gets each kernel's calls, shapes and
+    largest error."""
+    import torch
+
+    from repro_torch.index import build, kmeans, knn
+    from repro_torch.kernels.kmeans_assign import ops as k2
+    from repro_torch.kernels.pairwise import ops as k3
+
+    real = (kmeans.assign_nearest, build.pairwise_dist2, knn.pairwise_dist2)
+    seen = {"kmeans_assign": [], "pairwise": []}
+
+    def k2_checked(x, c):
+        got = real[0](x, c)
+        seen["kmeans_assign"].append(k2_check_scaled(x.float(), c.float(), got, k2.assign_nearest_plain(
+            x.float(), c.float())))
+        return got
+
+    def k3_checked(fn):
+        def call(a, b):
+            got = fn(a, b)
+            want = k3.pairwise_dist2_plain(a.float(), b.float())
+            bound = k3.allowed_error(a, b)
+            err = (got - want).abs()
+            if not bool(torch.all(err <= bound)):
+                raise AssertionError(f"pairwise disagrees with its plain version at {tuple(a.shape)} · "
+                                     f"{tuple(b.shape)}: {float(err.max())}")
+            seen["pairwise"].append({"shape": tuple(a.shape[:-1]) + (b.shape[-2], a.shape[-1]),
+                                     "max_abs_err": float(err.max())})
+            return got
+        return call
+
+    kmeans.assign_nearest, build.pairwise_dist2, knn.pairwise_dist2 = (
+        k2_checked, k3_checked(real[1]), k3_checked(real[2]))
+    try:
+        yield
+    finally:
+        kmeans.assign_nearest, build.pairwise_dist2, knn.pairwise_dist2 = real
+    for name, rows in seen.items():
+        if not rows:
+            raise AssertionError(f"the build called no {name}")
+        out[name] = {"calls": len(rows), "shapes": sorted({str(r["shape"]) for r in rows}),
+                     "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def launch_mesh_leg(device, work: str) -> dict:
+    """The launcher on a mesh of 4 shard slots of the card
+    (``--host-devices 4``) at PubMed's widths, ``LAUNCH_MESH_N`` rows: for
+    each of ``LAUNCH_MESHES`` (2×2 flat, 2×1×2 hierarchical) an
+    uninterrupted run in process (its mesh line; K1-K3's launches read
+    around it, the ``launch_mesh`` path's counts) whose embedding must equal
+    the in-process strategy fit (``ShardedStrategy`` or
+    ``HierarchicalStrategy`` on the same slots) bit for bit; on 2×2 a child
+    crashed at the start of epoch ``LAUNCH_FAIL_AT`` (exit 17) and a child
+    resumed from its checkpoints whose embedding must equal the
+    uninterrupted run's bit for bit; K2 and K3 against their plain versions
+    at every call of each strategy fit's 4-slot build, on that call's own
+    arguments (:func:`checked_build_kernels`: the same calls as the
+    launcher's run, whose embedding the fit equals); then K1 against its
+    plain version at one 2×2 slot's own step inputs
+    (``check_sharded_k1``)."""
+    import torch
+
+    from repro_torch.configs import get_nomad
+    from repro_torch.core import HierarchicalStrategy, NomadProjection, ShardedStrategy
+    from repro_torch.data.synthetic import hierarchical_mixture
+    from repro_torch.kernels import registry
+    from repro_torch.launch.mesh import local_slot_count, make_mesh, set_local_slots
+
+    common = ["--workload", LAUNCH_WORKLOAD, "--n-points", str(LAUNCH_MESH_N), "--epochs", str(LAUNCH_EPOCHS),
+              "--checkpoint-every", "1", "--host-devices", "4"]
+    cfg = get_nomad(LAUNCH_WORKLOAD).replace(n_points=LAUNCH_MESH_N, n_epochs=LAUNCH_EPOCHS)
+    x, _sup, _sub = hierarchical_mixture(cfg.n_points, cfg.dim, seed=cfg.seed)
+    out = {"reduced": LAUNCH_MESH_REDUCED, "runs": {}, "launches": {n: 0 for n in registry.names()}}
+    slots_before = local_slot_count()
+    fits = {}
+    try:
+        for label, mesh_args in LAUNCH_MESHES.items():
+            emb = os.path.join(work, f"mesh_{label}.npy")
+            registry.reset_launch_counts()
+            rc, text, wall, stages = _launcher(
+                common + mesh_args + ["--checkpoint-dir", os.path.join(work, f"mesh_{label}_a"), "--out", emb],
+                in_process=True)
+            launches = registry.launch_counts()
+            for n, v in launches.items():
+                out["launches"][n] += v
+            dims = tuple(int(d) for d in mesh_args[1].split("x"))
+            line = [ln for ln in text.splitlines() if ln.startswith("mesh ")]
+            out["runs"][label] = {"rc": rc, "wall_s": wall, "stage_s": stages, "mesh_line": line,
+                                  "launches": launches}
+            if rc != 0 or line != [f"mesh {dims} axes {('data', 'model') if len(dims) == 2 else ('pod', 'data', 'model')}"
+                                   f"; 4 shards"]:
+                raise AssertionError(f"the {label} launch returned {rc}, mesh line {line}:\n{text[-3000:]}")
+            if not all(launches[n] for n in FIT_KERNELS):
+                raise AssertionError(f"the {label} launch launched {launches}")
+            axes = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
+            mesh = make_mesh(dims, axes, [device] * 4)
+            hier = len(dims) == 3
+            strategy = HierarchicalStrategy(mesh=mesh) if hier else ShardedStrategy(mesh=mesh)
+            checked = {}
+            t0 = time.perf_counter()
+            with checked_build_kernels(checked):
+                fit = NomadProjection(cfg.replace(hierarchical=hier), strategy=strategy, device=device).fit(x)
+            torch.cuda.synchronize(device)
+            fits[label] = (fit, strategy, dims, axes)
+            a = np.load(emb)
+            same = bool(np.array_equal(a, fit.embedding))
+            out["runs"][label].update(strategy_fit_checked_s=time.perf_counter() - t0, strategy=fit.strategy,
+                                      equals_strategy_fit=same, losses=[float(v) for v in fit.losses],
+                                      build_kernels=checked)
+            if not same or not np.isfinite(a).all() or fit.n_shards != 4:
+                raise AssertionError(f"the {label} launch ≢ the in-process {fit.strategy} fit "
+                                     f"({int((a != fit.embedding).any(1).sum())} rows differ)")
+        # crash and resume on 2x2, in children
+        ck = common + LAUNCH_MESHES["2x2"] + ["--checkpoint-dir", os.path.join(work, "mesh_2x2_b")]
+        rc, text, wall, stages = _launcher(ck + ["--fail-at-epoch", str(LAUNCH_FAIL_AT)], in_process=False)
+        out["runs"]["crash"] = {"rc": rc, "wall_s": wall}
+        if rc != 17 or f"CRASH INJECTION at epoch {LAUNCH_FAIL_AT}" not in text:
+            raise AssertionError(f"the mesh crash run returned {rc}, not 17:\n{text[-3000:]}")
+        resumed = os.path.join(work, "mesh_2x2_resumed.npy")
+        rc, text, wall, stages = _launcher(ck + ["--resume", "--out", resumed], in_process=False)
+        resumed_at = [ln for ln in text.splitlines() if ln.startswith("resume: ")]
+        out["runs"]["resume"] = {"rc": rc, "wall_s": wall, "stage_s": stages, "resume_line": resumed_at}
+        if rc != 0 or "index: cache" not in text or not any(
+                f"resume: epoch {e} " in ln for ln in resumed_at for e in (LAUNCH_FAIL_AT - 1, LAUNCH_FAIL_AT)):
+            raise AssertionError(f"the mesh resume returned {rc}:\n{text[-3000:]}")
+        a, b = np.load(os.path.join(work, "mesh_2x2.npy")), np.load(resumed)
+        out["resumed_equals_uninterrupted"] = bool(np.array_equal(a, b))
+        if not out["resumed_equals_uninterrupted"]:
+            raise AssertionError(f"the mesh resume differs from the uninterrupted run "
+                                 f"({int((a != b).any(1).sum())} rows)")
+        fit, _strategy, dims, axes = fits["2x2"]
+        out["k1_slot"] = check_sharded_k1(device, cfg, fit, ShardedStrategy(mesh=make_mesh(dims, axes, [device] * 4)),
+                                          LAUNCH_MESH_K1_SLOT)
+    finally:
+        set_local_slots(slots_before)
     return out
 
 
@@ -4194,24 +4372,89 @@ def autotune_check(device) -> dict:
     return out
 
 
-def dryrun_check(train: dict, decode: dict) -> dict:
+def dryrun_cells(decode: dict) -> list:
+    """The dry run's cells, ``[arch, overrides, shape, multi_pod]`` each:
+    the train phase's own Phi-4-mini cell (``TRAIN_REDUCED``) and the
+    decode phase's Phi-4-mini step on one card, then
+    ``DRYRUN_MESH_CELLS`` on the production meshes."""
+    dphi = decode["phi4_mini"]
+    pad = {"head_pad_to": 1, "vocab_pad_to": 1}  # pipeline_arch()'s layout
+    return [[PIPE_ARCH, {**pad, "remat": "full", "attn_impl": "flash"},
+             ["train_4k_reduced", "train", TRAIN_SEQ, TRAIN_ACCUM * TRAIN_MICRO], None],
+            [PIPE_ARCH, pad, ["decode_reduced", "decode", dphi["cache_capacity"], dphi["batch"]], None]] + [
+        [arch, None, shape, multi] for arch, shape, multi in DRYRUN_MESH_CELLS]
+
+
+DRYRUN_MESH_CELLS = [("phi4-mini-3.8b", "train_4k", False), ("mixtral-8x7b", "decode_32k", True),
+                     ("nomad_pubmed", "epoch", False), ("nomad_pubmed", "epoch", True)]
+DRYRUN_TIMEOUT = 600  # s: the child's traces take ~130 s of one host core
+DRYRUN_CHILD = """
+import dataclasses, json, sys, time
+from repro_torch.configs import ARCHS, NOMAD_WORKLOADS, ShapeConfig
+from repro_torch.launch import dryrun
+recs = []
+for arch, over, shape, multi in json.loads(sys.argv[2]):
+    t0 = time.time()
+    if arch in NOMAD_WORKLOADS:
+        rec = dryrun.run_nomad_cell(arch, multi)
+    else:
+        cfg = arch if over is None else dataclasses.replace(ARCHS[arch], **over)
+        rec = dryrun.run_lm_cell(cfg, shape if isinstance(shape, str) else ShapeConfig(*shape), multi)
+    rec["cell_s"] = time.time() - t0
+    recs.append(rec)
+    print(rec["arch"], rec["shape"], rec["mesh"], round(rec["cell_s"], 1), flush=True)
+with open(sys.argv[1], "w") as f:
+    json.dump(recs, f)
+"""
+
+
+def start_dryruns(decode: dict):
+    """Start the dry run of :func:`dryrun_cells` (meta tensors, full widths
+    and depth) in a CPU-only child with two threads: (process, its JSON
+    path, start). ``main`` starts it before the train phase, whose
+    Phi-4-mini steps are device-bound (busy ~98%), so its host time hides
+    there and takes none from the phases that lean on the host."""
+    import atexit
+
+    path = os.path.join(OUT_DIR, "dryrun.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, path, json.dumps(dryrun_cells(decode))],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path, time.perf_counter()
+
+
+def finish_dryruns(started) -> tuple:
+    """Wait for :func:`start_dryruns`' child: (its records, the seconds from
+    its start, the last lines of its log). Fatal if it fails or outlasts
+    ``DRYRUN_TIMEOUT``."""
+    proc, path, t0 = started
+    try:
+        log, _ = proc.communicate(timeout=max(DRYRUN_TIMEOUT - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"the dry run's child ran past {DRYRUN_TIMEOUT} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry run's child returned {proc.returncode}:\n{log[-3000:]}")
+    with open(path) as f:
+        recs = json.load(f)
+    if len(recs) != len(DRYRUN_MESH_CELLS) + 2:
+        raise AssertionError(f"the dry run's child wrote {len(recs)} of {len(DRYRUN_MESH_CELLS) + 2} records")
+    return recs, time.perf_counter() - t0, log.splitlines()[-8:]
+
+
+def dryrun_check(train: dict, decode: dict, recs: list) -> dict:
     """The dry run (``repro_torch.launch.dryrun.run_lm_cell``, on meta
-    tensors) of the train phase's own Phi-4-mini cell (``TRAIN_REDUCED``)
-    and of the decode phase's Phi-4-mini step: the predicted memory beside
+    tensors, in :func:`start_dryruns`' child) of the train phase's own
+    Phi-4-mini cell (``TRAIN_REDUCED``) and of the decode phase's
+    Phi-4-mini step (``recs``, in that order): the predicted memory beside
     the measured peaks (reported: the caching allocator rounds up) and the
     op counter's matrix-product FLOPs beside ``train_flops``' hardware
     count, within ``DRYRUN_FLOP_REL`` (the gate: two counts of the same
     products)."""
-    import dataclasses
-
-    from repro_torch.configs import ShapeConfig
-    from repro_torch.launch.dryrun import run_lm_cell
-
-    t0 = time.perf_counter()
+    rec, drec = recs
     phi = train["phi4_mini"]
-    tcfg = dataclasses.replace(pipeline_arch(), remat="full", attn_impl="flash")
-    tshape = ShapeConfig("train_4k_reduced", "train", TRAIN_SEQ, TRAIN_ACCUM * TRAIN_MICRO)
-    rec = run_lm_cell(tcfg, tshape)
     flop_rel = rec["op_cost"]["dot_flops"] / phi["hardware_flops"] - 1.0
     out = {"train": {"cell": [TRAIN_ACCUM * TRAIN_MICRO, TRAIN_SEQ, TRAIN_ACCUM], "trace_s": rec["trace_s"],
                      "memory": rec["memory"], "measured_peak_bytes": phi["peak_device_gb"] * 1e9,
@@ -4226,8 +4469,6 @@ def dryrun_check(train: dict, decode: dict) -> dict:
         raise AssertionError(f"the dry run counts {rec['op_cost']['dot_flops']:.6e} matrix-product FLOPs, "
                              f"train_flops {phi['hardware_flops']:.6e} ({flop_rel:+.2%})")
     dphi = decode["phi4_mini"]
-    dshape = ShapeConfig("decode_reduced", "decode", dphi["cache_capacity"], dphi["batch"])
-    drec = run_lm_cell(pipeline_arch(), dshape)
     out["decode"] = {"cell": [dphi["batch"], dphi["cache_capacity"]], "trace_s": drec["trace_s"],
                      "memory": drec["memory"], "measured_peak_bytes_with_prefill": dphi["peak_device_gb"] * 1e9,
                      "dot_flops": drec["op_cost"]["dot_flops"], "op_bytes": drec["op_cost"]["bytes"],
@@ -4235,7 +4476,99 @@ def dryrun_check(train: dict, decode: dict) -> dict:
                      "model_flops": drec["model_flops"], "measured_step_ms_p50": dphi["step_ms_p50"],
                      "measured_step_bound_ms": dphi["step_bound_ms"]}
     print(json.dumps({"dryrun_decode": out["decode"]}), flush=True)
-    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def dryrun_mesh_check(recs: list) -> dict:
+    """The production-mesh dry run's records (``DRYRUN_MESH_CELLS``, from
+    :func:`start_dryruns`' child): Phi-4-mini ``train_4k`` on
+    ``pod16x16``, Mixtral ``decode_32k`` on ``pod2x16x16`` and
+    ``nomad_pubmed`` on both, each a card's GiB against the 80 GB, its
+    terms at ``HW_H100``'s peaks (predictions, not times) and its
+    collective bytes by type. Fatal unless every record is ok and finite
+    and every LM cell bills collective bytes."""
+    import math
+
+    cells = []
+    for rec in recs:
+        lm = rec["kind"] != "nomad-epoch"
+        coll = rec["op_cost"] if lm else rec["collectives"]
+        nums = [v for v in list(rec["terms"].values()) + list(rec["memory"].values()) + [coll["collective_bytes"]]
+                if isinstance(v, float)]
+        row = {"cell": f"{rec['arch']} × {rec['shape']}", "mesh": rec["mesh"], "n_chips": rec["n_chips"],
+               "per_device_gib": rec["memory"]["per_device_total"] / 2**30, "fits_80gb": rec["memory"]["fits"],
+               "memory": {k: v for k, v in rec["memory"].items() if k != "state_bytes"}, "terms": rec["terms"],
+               "coll_by_type": coll["coll_by_type"], "collective_bytes": coll["collective_bytes"],
+               "cell_s": rec["cell_s"]}
+        if lm:
+            row.update(dot_flops=rec["op_cost"]["dot_flops"], model_flops=rec["model_flops"],
+                       token_axes=rec["token_axes"], stationary=rec["stationary"])
+        cells.append(row)
+        print(json.dumps({"dryrun_mesh": row}), flush=True)
+        if not (rec["ok"] and all(math.isfinite(v) for v in nums)) or (lm and not coll["collective_bytes"] > 0):
+            raise AssertionError(f"the production-mesh dry run's {row['cell']} on {row['mesh']}: {row}")
+    return {"cells": cells}
+
+
+# ---------------------------------------------------------------------------
+# The examples' twins on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = {
+    "quickstart_torch": ["--n", "1500", "--epochs", "4", "--clusters", "8"],
+    "serve_map_torch": ["--n", "2000", "--queries", "400", "--dim", "16", "--epochs", "8", "--clusters", "8",
+                        "--microbatch", "128"],
+}
+
+
+def examples_path(device) -> dict:
+    """``examples/quickstart_torch.py`` and ``serve_map_torch.py`` at their
+    references' CI points on the card, in process through each script's
+    ``main`` (stdout captured): each must end on its ``OK`` line, and
+    K1-K5 must be launched between them (the ``examples`` path's
+    counts). Then every kernel against its plain version on each example's
+    own data (:func:`check_path_kernels`, fatal): its fit's index and θ,
+    its corpus, and serve_map's frozen map, queries and placements
+    (quickstart serves its corpus on its fitted map); the examples' own
+    checks (NP@10 above chance, placements near their neighbours) would
+    pass a wrong kernel."""
+    import io
+    import runpy
+
+    import torch
+
+    from repro_torch.kernels import registry
+    from repro_torch.serve import FrozenMap, MapServer
+
+    out = {"runs": {}, "kernels": {}}
+    registry.reset_launch_counts()
+    t_phase = time.perf_counter()
+    built = {}
+    for name, argv in EXAMPLES.items():
+        script = runpy.run_path(os.path.join(ROOT, "examples", f"{name}.py"))
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            built[name] = script["main"](argv + ["--device", str(device)])
+        torch.cuda.synchronize(device)
+        lines = buf.getvalue().splitlines()
+        out["runs"][name] = {"wall_s": time.perf_counter() - t0, "argv": argv,
+                             "lines": [ln for ln in lines if ln.strip() and not set(ln) <= set("0123456789abcdef ")]}
+        if not lines or lines[-1].strip() != "OK":
+            raise AssertionError(f"{name} did not end on OK:\n" + "\n".join(lines[-20:]))
+    out["launches"] = registry.launch_counts()
+    if not all(out["launches"][n] for n in FIT_KERNELS + SERVE_KERNELS[2:]):
+        raise AssertionError(f"the examples launched {out['launches']}")
+    for name, got in built.items():
+        x = got["x"]
+        if "frozen" in got:
+            frozen, q, placed = got["frozen"], got["queries"], got["placed"]
+        else:
+            frozen = FrozenMap.from_fit(got["fit"], got["cfg"], device=device)
+            q, placed = x, MapServer(frozen).transform(x, seed=7).embedding
+        out["kernels"][name] = check_path_kernels(device, got["fit"], frozen, torch.from_numpy(x).to(device),
+                                                  torch.from_numpy(q).to(device), placed, random=False)
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -4627,10 +4960,17 @@ def main() -> int:
     decode = decode_path(device)
     decode["phase_s"] = time.time() - t0
     print(json.dumps({"decode_path": {"phase_s": decode["phase_s"], "launches": decode["launches"]}}), flush=True)
+    dryruns = start_dryruns(decode)
     t0 = time.time()
     train = train_path(device)
     train["phase_s"] = time.time() - t0
     print(json.dumps({"train_path": train_summary(train)}, default=str), flush=True)
+    recs, child_s, child_log = finish_dryruns(dryruns)
+    dryrun = dryrun_check(train, decode, recs[:2])
+    dryrun["mesh"] = dryrun_mesh_check(recs[2:])
+    dryrun.update(child_s=child_s, child_log=child_log, waited_after_train_s=time.time() - t0 - train["phase_s"])
+    print(json.dumps({"dryrun_check": {"child_s": child_s, "flop_rel": dryrun["train"]["flop_rel"],
+                                       "memory_ratio": dryrun["train"]["memory_ratio"]}, "card": card}), flush=True)
     launch = launch_path(device)
     print(json.dumps({"launch_path": launch}, default=str), flush=True)
     sharded = sharded_path(device)
@@ -4641,9 +4981,9 @@ def main() -> int:
     tuned = autotune_check(device)
     print(json.dumps({"autotune_check": {k: v for k, v in tuned.items() if k != "plans"}, "card": card},
                      default=str), flush=True)
-    dryrun = dryrun_check(train, decode)
-    print(json.dumps({"dryrun_check": {"phase_s": dryrun["phase_s"], "flop_rel": dryrun["train"]["flop_rel"],
-                                       "memory_ratio": dryrun["train"]["memory_ratio"]}}), flush=True)
+    examples = examples_path(device)
+    print(json.dumps({"examples_path": {k: v for k, v in examples.items() if k != "kernels"}, "card": card}),
+          flush=True)
     stream = stream_path(device, x)
     del x
     print(json.dumps({"stream_path": stream}), flush=True)
@@ -4668,7 +5008,9 @@ def main() -> int:
                                  "service": service["launches"][name], "pipeline": pipeline["launches"][name],
                                  "decode": decode["launches"][name], "train": train["launches"][name],
                                  "launch": launch["launches"][name], "sharded": sharded["launches"][name],
-                                 "selftest": lm_sharded["launches"][name]},
+                                 "selftest": lm_sharded["launches"][name],
+                                 "launch_mesh": launch["mesh"]["launches"][name],
+                                 "examples": examples["launches"][name]},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
@@ -4692,7 +5034,7 @@ def main() -> int:
               "main_path": main_res, "small_quality": quality, "serve_path": serve, "partial_path": partial,
               "service_path": service, "pipeline_path": pipeline, "decode_path": decode, "train_path": train,
               "launch_path": launch, "sharded_path": sharded, "lm_sharded_path": lm_sharded,
-              "autotune_check": tuned, "dryrun_check": dryrun, "stream_path": stream,
+              "autotune_check": tuned, "dryrun_check": dryrun, "examples_path": examples, "stream_path": stream,
               "checkpoint_roundtrip": ckpt, "partial_small": small_partial,
               "tpu_kernels": table, "kernels": kernels}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

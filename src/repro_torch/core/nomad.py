@@ -142,28 +142,54 @@ def sample_partial_rows(gen: torch.Generator, idx: dict, cfg: NomadConfig, metho
     return rows, cell, sample_in_cluster(gen, cell, idx["counts"], C, cfg.n_exact_negatives)
 
 
+def make_step_fn(cfg: NomadConfig, *, method: str = "nomad", cluster_offset: int = 0,
+                 n_total: Optional[int] = None, sampler=sample_step_rows):
+    """``step(theta, idx, means, global_counts, lr, gen) -> (theta, loss)``,
+    the JAX package's step factory: draw the step's rows with ``sampler``
+    from the generator ``gen`` (in place of a JAX key) and apply
+    :func:`step_update`. ``cluster_offset`` is the row of cell 0 of
+    ``idx["counts"]`` among ``means`` (``step_update``'s ``own_base``)."""
+
+    def step(theta, idx, means, global_counts, lr, gen):
+        rows, cl, neg_rows = sampler(gen, idx, cfg, method)
+        loss = step_update(theta, idx, means, global_counts, lr, rows, cl, neg_rows, cfg=cfg, method=method,
+                           n_total=n_total, own_base=cluster_offset)
+        return theta, loss
+
+    return step
+
+
+def make_epoch_fn(cfg: NomadConfig, step_fn, steps_per_epoch: int):
+    """``epoch(theta, idx, lr0, lr1, epoch_key) -> (theta, mean loss)``, the
+    JAX package's epoch factory: means refreshed every
+    ``cfg.mean_refresh_steps`` (default: once, at the start), lr annealed
+    linearly from lr0 towards lr1, and step t's generator seeded from
+    (*epoch_key, t) in place of ``fold_in(epoch_key, t)``."""
+    refresh = cfg.mean_refresh_steps or steps_per_epoch
+
+    def epoch(theta, idx, lr0, lr1, epoch_key):
+        counts_f = idx["counts"].float()
+        means, step_losses = None, []
+        for t in range(steps_per_epoch):
+            if t % refresh == 0:
+                means = local_means(theta, idx["counts"], cfg.cluster_capacity)
+            lr = lr0 + (lr1 - lr0) * (t / steps_per_epoch)
+            theta, loss = step_fn(theta, idx, means, counts_f, lr, seeded_generator(theta.device, *epoch_key, t))
+            step_losses.append(loss)
+        return theta, torch.stack(step_losses).mean()
+
+    return epoch
+
+
 def run_epoch(theta, idx, cfg: NomadConfig, method: str, steps: int, lr0: float, lr1: float, epoch: int,
               *, sampler=sample_step_rows, key: Optional[tuple] = None, n_total: Optional[int] = None):
-    """Means refreshed every ``cfg.mean_refresh_steps`` (default: once, at
-    the start), lr annealed linearly from lr0 towards lr1 over the epoch.
-    Step t draws its rows with ``sampler`` from a generator seeded from
-    (*key, epoch, t), ``key`` (seed + 1,) by default. Returns (theta, mean
-    loss as a 0-d tensor)."""
+    """One epoch of ``steps`` steps (:func:`make_epoch_fn` over
+    :func:`make_step_fn`): step t draws its rows with ``sampler`` from a
+    generator seeded from (*key, epoch, t), ``key`` (seed + 1,) by
+    default. Returns (theta, mean loss as a 0-d tensor)."""
     key = (cfg.seed + 1,) if key is None else key
-    refresh = cfg.mean_refresh_steps or steps
-    counts_f = idx["counts"].float()
-    means, step_losses = None, []
-    for t in range(steps):
-        if t % refresh == 0:
-            means = local_means(theta, idx["counts"], cfg.cluster_capacity)
-        lr = lr0 + (lr1 - lr0) * (t / steps)
-        gen = seeded_generator(theta.device, *key, epoch, t)
-        rows, cl, neg_rows = sampler(gen, idx, cfg, method)
-        step_losses.append(
-            step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, cfg=cfg, method=method,
-                        n_total=n_total)
-        )
-    return theta, torch.stack(step_losses).mean()
+    step = make_step_fn(cfg, method=method, n_total=n_total, sampler=sampler)
+    return make_epoch_fn(cfg, step, steps)(theta, idx, lr0, lr1, (*key, epoch))
 
 
 # ---------------------------------------------------------------------------

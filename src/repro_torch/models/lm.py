@@ -22,8 +22,10 @@ with the members a family does not use absent; the hybrid's k/v are
 ``pos`` holds absolute positions so masking works across wraps. The port
 keeps ``idx`` a Python int (the host knows the step count) and writes
 each step's k/v slot and SSM state into the cache's tensors in place: the
-reference returns a new cache a step. The activation-sharding hint is not
-ported.
+reference returns a new cache a step. The reference's activation-sharding
+hint has no counterpart: no path of the port makes a sharded tensor for it
+to pin, and the dry run bills a mesh from the specs
+(``launch/dryrun.py:mesh_cost``).
 
 Training: :func:`body` wraps each layer or meta-block by ``cfg.remat``, as
 the reference's ``_maybe_remat`` wraps its scanned body: ``"none"``,

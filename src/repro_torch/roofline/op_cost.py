@@ -27,7 +27,10 @@ as it runs: the analogue of the HLO parser's trip-count rule, and
 the collective fields stay 0. ``temp_bytes`` is the peak of the live
 storage that the ops created: a storage is added when an op returns it new
 and subtracted when a weak-reference finaliser sees it die (the storages
-autograd saves for the backward included, as they hold it).
+autograd saves for the backward included, as they hold it). Given a
+``split`` (tensor → the number of cards that share it), :class:`OpCounter`
+also keeps the peak of each live storage's per-card share,
+``local_temp_bytes``: the dry run's temp on a mesh.
 
 It runs on meta tensors, where nothing is allocated, and counts the same
 on CPU tensors. Like the HLO parser it is a model, not a measurement.
@@ -174,18 +177,21 @@ class OpCounter(TorchDispatchMode):
     """The dispatch mode behind :func:`analyze_ops`: bills every aten op
     into :attr:`report` and tracks the live storage the ops create."""
 
-    def __init__(self):
+    def __init__(self, split=None):
         super().__init__()
         self.report = CostReport()
-        self._live = 0.0
-        self._seen: Dict[int, float] = {}
+        self.split = split
+        self.local_temp_bytes = 0.0
+        self._live = self._live_local = 0.0
+        self._seen: Dict[int, tuple] = {}
         self._lock = threading.Lock()
 
     def _free(self, key: int) -> None:
         with self._lock:
             n = self._seen.pop(key, None)
             if n is not None:
-                self._live -= n
+                self._live -= n[0]
+                self._live_local -= n[1]
 
     def _track(self, outs: list, in_keys: set) -> None:
         for t in outs:
@@ -195,9 +201,12 @@ class OpCounter(TorchDispatchMode):
                 if key in self._seen or key in in_keys:
                     continue
                 n = float(st.nbytes())
-                self._seen[key] = n
+                local = n / self.split(t) if self.split is not None else n
+                self._seen[key] = (n, local)
                 self._live += n
+                self._live_local += local
                 self.report.temp_bytes = max(self.report.temp_bytes, self._live)
+                self.local_temp_bytes = max(self.local_temp_bytes, self._live_local)
             weakref.finalize(st, self._free, key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):

@@ -237,11 +237,11 @@ def test_run_nomad_cell():
 
 
 def test_cli_writes_cells_and_skips_existing(tmp_path, capsys):
-    assert dryrun.main(["--arch", "nomad_pubmed", "--out", str(tmp_path)]) == 0
+    assert dryrun.main(["--arch", "nomad_pubmed", "--out", str(tmp_path), "--mesh", "one"]) == 0
     path = tmp_path / "h100x1" / "nomad_pubmed__epoch.json"
     rec = json.loads(path.read_text())
     assert rec["ok"] and rec["arch"] == "nomad_pubmed"
-    assert dryrun.main(["--arch", "nomad_pubmed", "--out", str(tmp_path), "--skip-existing"]) == 0
+    assert dryrun.main(["--arch", "nomad_pubmed", "--out", str(tmp_path), "--mesh", "one", "--skip-existing"]) == 0
     assert "SKIP (exists)" in capsys.readouterr().out
     assert dryrun.cells("hubert-xlarge", "decode_32k") == []
     assert dryrun.cells("all", "all")[-2:] == [("nomad_pubmed", "epoch"), ("nomad_wiki60m", "epoch")]

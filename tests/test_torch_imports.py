@@ -59,6 +59,11 @@ def test_import_loads_no_jax_and_no_repro():
         "from repro_torch.models.attention import set_decode_context, attend_decode_sharded\n"
         "from repro_torch.kernels import registry\n"
         "registry.names(), registry.spec_names()  # imports every kernel module\n"
+        "from repro_torch.core import *\n"
+        "from repro_torch.core import NomadProjection, make_step_fn, make_epoch_fn, HierarchicalStrategy\n"
+        "from repro_torch.launch.dryrun import run_lm_cell, run_nomad_cell, mesh_cost, spec_collectives\n"
+        "from repro_torch.launch.dryrun import production_mesh, main as dryrun_main\n"
+        "from repro_torch.launch.train import build_mesh\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -94,8 +99,47 @@ def test_runtime_layers_import_nothing_above_them(module, allowed):
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
 
+EXAMPLES = ["quickstart_torch", "serve_map_torch", "serve_http_torch", "serve_lm_torch", "embed_and_map_torch",
+            "distributed_map_torch"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "repro_torch.launch.dryrun", "--arch", "nomad_pubmed", "--mesh", "both"],
+    ["-m", "repro_torch.launch.dryrun", "--arch", "nomad_wiki60m", "--mesh", "one"],
+    ["-m", "repro_torch.launch.train", "--help"],
+] + [[f"examples/{name}.py", "--help"] for name in EXAMPLES], ids=lambda a: " ".join(a[:4]))
+def test_entry_points_load_no_jax_and_no_repro(argv, tmp_path):
+    """Each entry point run as ``__main__`` (the dry run on its mesh
+    options, the launcher and the examples' twins): afterwards neither JAX
+    nor the JAX package is in ``sys.modules``."""
+    argv = [a if not a.startswith("examples/") else str(ROOT / a) for a in argv]
+    if argv[0] == "-m" and argv[1].endswith("dryrun"):
+        argv = argv + ["--out", str(tmp_path)]
+    code = (
+        "import runpy, sys\n"
+        "argv = sys.argv[1:]\n"
+        "sys.argv = [argv[1] if argv[0] == '-m' else argv[0]] + argv[(2 if argv[0] == '-m' else 1):]\n"
+        "try:\n"
+        "    if argv[0] == '-m':\n"
+        "        runpy.run_module(argv[1], run_name='__main__', alter_sys=True)\n"
+        "    else:\n"
+        "        runpy.run_path(argv[0], run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "print('loaded', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, *argv], env=env, capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert "loaded []" in out.stdout
+
+
 def test_sources_import_no_jax_and_no_repro():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        [ROOT / "examples" / f"{name}.py" for name in EXAMPLES]
     assert len(files) > 10
     offenders = [str(f) for f in files if _IMPORT.search(f.read_text())]
     assert not offenders, offenders
