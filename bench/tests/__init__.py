@@ -1,0 +1,8 @@
+"""CPU tests of the benchmark: ``PYTHONPATH=src python -m pytest -q bench/tests``."""
+
+import sys
+from pathlib import Path
+
+_SRC = str(Path(__file__).resolve().parents[2] / "src")
+if _SRC not in sys.path:
+    sys.path.insert(0, _SRC)
