@@ -21,7 +21,7 @@ Phases, each fatal on failure:
 5. the serving path: ``MapServer.transform`` of 65,536 new queries on the
    frozen N = 1M map (64 batches of 1024 at 24 steps), with its launch
    counts read around it, bit-equal placements at microbatch 512 and
-   1024, training rows that find themselves, and one batch profiled;
+   1024, and training rows that find themselves;
 6. growing the map (``partial_path``): ``partial_fit`` of 32,768 new rows
    of half the mixture's components on the N = 1M map, with every
    kernel's launch count read around it, the grown layout checked
@@ -843,7 +843,6 @@ def main_path(device):
     e2 = NomadProjection(short, device=device).fit(x, index=res.index).embedding
     if not np.array_equal(e1, e2):
         raise AssertionError("two fits from one seed and index differ")
-    profile = epoch_profile(device, cfg, res)
     quality = embedding_quality(x, emb, device)
     return {
         "config": {k: getattr(cfg, k) for k in (
@@ -861,7 +860,6 @@ def main_path(device):
         "peak_device_gb": peak_gb,
         "launches": launches,
         "rerun_bit_equal": True,
-        "epoch_profile": profile,
         "quality": quality,
     }, x, est, res
 
@@ -877,41 +875,6 @@ def embedding_quality(x, emb, device, n_queries=2000, k=10, seed=0):
     np_k = neighborhood_preservation(x, emb, k=k, n_queries=n_queries, seed=seed, device=device)
     rta = random_triplet_accuracy(x, emb, 20_000, seed=seed)
     return {"np10": np_k, "np10_chance": k / n, "rta": rta, "n_queries": n_queries}
-
-
-def epoch_profile(device, cfg, res):
-    """One more epoch of the main path from the fitted θ: its wall time
-    unprofiled, then under torch.profiler the device time of every kernel
-    it ran. busy_share = device time / unprofiled wall (one stream)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core.strategy import LocalStrategy
-
-    theta0 = np.zeros((res.index.n_clusters * res.index.capacity, cfg.out_dim), np.float32)
-    theta0[res.index.perm] = res.embedding
-    strategy = LocalStrategy()
-    theta = strategy.prepare(cfg, "nomad", res.index, theta0, device)
-    lr = cfg.resolved_lr0() / cfg.n_epochs
-    torch.cuda.synchronize()
-    t0 = time.time()
-    strategy.run_epoch(theta, 0, lr, lr)
-    torch.cuda.synchronize()
-    wall_ms = (time.time() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        strategy.run_epoch(theta, 1, lr, lr)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    return {
-        "steps": cfg.resolved_steps_per_epoch(),
-        "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms if busy_ms > 0 else None,
-        "busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
-        "top_kernels_ms": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in top],
-    }
 
 
 def small_quality(device):
@@ -957,43 +920,11 @@ def mixture_queries(n, dim, n_components, seed, fit_seed=0, spread=0.15, labels=
     return (centers[labels] + rng.normal(0, spread / np.sqrt(dim), (n, dim))).astype(np.float32)
 
 
-def batch_profile(device, server, q):
-    """One serving batch: its wall time unprofiled, then under
-    torch.profiler the device time of every kernel it ran. busy_share =
-    device time / unprofiled wall (one stream)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    B = server.batch_rows
-    args = (q[:B], np.arange(B), np.zeros(B, np.int64), np.ones(B, bool))
-    server.transform_batch(*args)  # warm
-    torch.cuda.synchronize()
-    t0 = time.time()
-    server.transform_batch(*args)
-    wall_ms = (time.time() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        server.transform_batch(*args)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    return {
-        "rows": B,
-        "steps": server.steps,
-        "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms if busy_ms > 0 else None,
-        "busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
-        "device_launches": sum(e.count for e in kernels),
-        "top_kernels_ms": [(e.key[:80], e.self_device_time_total / 1e3, e.count) for e in top],
-    }
-
-
 def serve_path(device, cfg, res, x):
     """``MapServer.transform`` of SERVE_Q new queries on the frozen main-path
     map, at serve_microbatch 1024 and transform_steps 24, with the serving
-    kernels' launch counts read around it; then microbatch invariance,
-    training rows as queries, and one batch profiled."""
+    kernels' launch counts read around it; then microbatch invariance and
+    training rows as queries."""
     import torch
 
     from repro_torch.kernels import registry
@@ -1053,7 +984,6 @@ def serve_path(device, cfg, res, x):
     if not (gap <= radius + 1e-12).all():
         raise AssertionError("steps=0 placements of training rows leave their neighbour radius")
 
-    profile = batch_profile(device, server, q)
     return {
         "queries": SERVE_Q,
         "microbatch": server.microbatch,
@@ -1072,7 +1002,6 @@ def serve_path(device, cfg, res, x):
         "self_max_dist": float(rs.neighbor_dists[:, 0].max()),
         "self_dist_bound_min": float(self_tol.min()),
         "self_rows_candidates_in_nearest_cell": int(np.sum(rc.cells == home)),
-        "batch_profile": profile,
     }
 
 
@@ -4605,7 +4534,7 @@ def stream_child(mode: str, work: str, device: str, cfg_json: str) -> int:
     from repro_torch.configs import NomadConfig
     from repro_torch.core.nomad import NomadProjection
     from repro_torch.data.store import ShardedStore
-    from repro_torch.index.build import rss_mb
+    from repro_torch.core.trace import rss_mb
     from repro_torch.kernels import registry
 
     device = torch.device(device)

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.configs.base import NomadConfig
 from repro_torch.core.nomad import NomadProjection, local_means, sample_step_rows, step_update
+from repro_torch.core.trace import span
 from repro_torch.index.build import seeded_generator
 
 
@@ -122,23 +123,27 @@ def make_sharded_epoch_fn(cfg: NomadConfig, mesh, *, shard_axes=("data",), pod_a
     def epoch(theta, idx, counts_global, lr0: float, lr1: float, e: int):
         cells = {}
         step_losses = {s: [] for s, _ in local}
-        for t in range(steps):
-            if t % refresh == 0:
-                got = mesh.all_gather([local_means(theta[s], idx[s]["counts"], C) for s, _ in local])
+        with span("nomad.epoch"):
+            for t in range(steps):
+                if t % refresh == 0:
+                    with span("nomad.means"):
+                        got = mesh.all_gather([local_means(theta[s], idx[s]["counts"], C) for s, _ in local])
+                        for s, dev in local:
+                            means = [got[slot_of[r]].to(dev) for r in range(n_shards)]
+                            cells[s] = cell_exchange(means, counts_global[s], s, n_noise=cfg.n_noise,
+                                                     n_total=cfg.n_points, n_pods=n_pods, hierarchical=hierarchical)
+                lr = lr0 + (lr1 - lr0) * (t / steps)
                 for s, dev in local:
-                    means = [got[slot_of[r]].to(dev) for r in range(n_shards)]
-                    cells[s] = cell_exchange(means, counts_global[s], s, n_noise=cfg.n_noise,
-                                             n_total=cfg.n_points, n_pods=n_pods, hierarchical=hierarchical)
-            lr = lr0 + (lr1 - lr0) * (t / steps)
-            for s, dev in local:
-                gen = seeded_generator(dev, *step_key(cfg, e, s, t, n_shards))
-                rows, cl, neg_rows = sample_step_rows(gen, idx[s], cfg, "nomad")
-                cell_means, cell_w, own_base = cells[s]
-                step_losses[s].append(step_update(theta[s], idx[s], cell_means, idx[s]["counts"], lr, rows, cl,
-                                                  neg_rows, cfg=cfg, cell_w=cell_w, own_base=own_base))
-        got = mesh.all_gather([torch.stack(step_losses[s]).mean() for s, _ in local])
-        per_shard = torch.stack([got[slot_of[s]].to(got[slot_of[0]].device) for s in range(n_shards)])
-        return theta, per_shard.sum() / n_shards
+                    with span("nomad.step"):
+                        with span("nomad.step.sample"):
+                            gen = seeded_generator(dev, *step_key(cfg, e, s, t, n_shards))
+                            rows, cl, neg_rows = sample_step_rows(gen, idx[s], cfg, "nomad")
+                        cell_means, cell_w, own_base = cells[s]
+                        step_losses[s].append(step_update(theta[s], idx[s], cell_means, idx[s]["counts"], lr, rows,
+                                                          cl, neg_rows, cfg=cfg, cell_w=cell_w, own_base=own_base))
+            got = mesh.all_gather([torch.stack(step_losses[s]).mean() for s, _ in local])
+            per_shard = torch.stack([got[slot_of[s]].to(got[slot_of[0]].device) for s in range(n_shards)])
+            return theta, per_shard.sum() / n_shards
 
     return epoch
 

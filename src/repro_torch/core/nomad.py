@@ -42,8 +42,9 @@ from repro_torch.configs.base import NomadConfig
 from repro_torch.core import losses
 from repro_torch.core.pca import pca_init, pca_init_streamed
 from repro_torch.core.runtime import process_count, process_index, resolve_device
+from repro_torch.core.trace import span, stage
 from repro_torch.index.ann import AnnIndex, data_fingerprint, index_cache_path, load_index, save_index
-from repro_torch.index.build import IndexBuilder, rss_mb, seeded_generator, synchronize
+from repro_torch.index.build import IndexBuilder, seeded_generator
 
 # ---------------------------------------------------------------------------
 # Sampling helpers (cluster-major layout)
@@ -102,26 +103,34 @@ def step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, *, cfg, met
     The three scatters sum duplicate rows in the JAX package's order
     (heads, then positives, then negatives) with ``index_put_(accumulate=
     True)``, whose CUDA path sorts the indices and adds in a fixed order:
-    no float atomics, so a step repeats bit for bit.
+    no float atomics, so a step repeats bit for bit. Its phases are the
+    spans ``nomad.step.gather``, ``nomad.step.k1`` and
+    ``nomad.step.scatter``.
     """
     n_total = n_total or cfg.n_points
-    pos_rows = idx["knn_idx"][rows]  # (B, k)
-    pos_w = idx["knn_w"][rows]
-    th_i = theta[rows].requires_grad_()
-    th_pos = theta[pos_rows].requires_grad_()
-    th_neg = theta[neg_rows].requires_grad_()
-    if method == "infonc":
-        loss = losses.infonc_tsne_loss(th_i, th_pos, pos_w, th_neg)
-    else:
-        loss = losses.nomad_loss(
-            th_i, th_pos, pos_w, means, counts_f, cl, th_neg,
-            n_noise=cfg.n_noise, n_total=n_total, cell_w=cell_w, own_base=own_base,
-        )
-    g_i, g_pos, g_neg = torch.autograd.grad(loss, (th_i, th_pos, th_neg))
-    d = theta.shape[1]
-    theta.index_put_((rows,), g_i * -lr, accumulate=True)
-    theta.index_put_((pos_rows.reshape(-1),), g_pos.reshape(-1, d) * -lr, accumulate=True)
-    theta.index_put_((neg_rows.reshape(-1),), g_neg.reshape(-1, d) * -lr, accumulate=True)
+    with span("nomad.step.gather"):
+        pos_rows = idx["knn_idx"][rows]  # (B, k)
+        pos_w = idx["knn_w"][rows]
+        th_i = theta[rows].requires_grad_()
+        th_pos = theta[pos_rows].requires_grad_()
+        th_neg = theta[neg_rows].requires_grad_()
+    # K1 forward and backward. On the card the backward runs on autograd's
+    # device thread; this span, on the caller's, is what is open while the
+    # caller waits in ``autograd.grad``, so it keys those idle gaps
+    with span("nomad.step.k1"):
+        if method == "infonc":
+            loss = losses.infonc_tsne_loss(th_i, th_pos, pos_w, th_neg)
+        else:
+            loss = losses.nomad_loss(
+                th_i, th_pos, pos_w, means, counts_f, cl, th_neg,
+                n_noise=cfg.n_noise, n_total=n_total, cell_w=cell_w, own_base=own_base,
+            )
+        g_i, g_pos, g_neg = torch.autograd.grad(loss, (th_i, th_pos, th_neg))
+    with span("nomad.step.scatter"):
+        d = theta.shape[1]
+        theta.index_put_((rows,), g_i * -lr, accumulate=True)
+        theta.index_put_((pos_rows.reshape(-1),), g_pos.reshape(-1, d) * -lr, accumulate=True)
+        theta.index_put_((neg_rows.reshape(-1),), g_neg.reshape(-1, d) * -lr, accumulate=True)
     return loss.detach()
 
 
@@ -151,7 +160,8 @@ def make_step_fn(cfg: NomadConfig, *, method: str = "nomad", cluster_offset: int
     ``idx["counts"]`` among ``means`` (``step_update``'s ``own_base``)."""
 
     def step(theta, idx, means, global_counts, lr, gen):
-        rows, cl, neg_rows = sampler(gen, idx, cfg, method)
+        with span("nomad.step.sample"):
+            rows, cl, neg_rows = sampler(gen, idx, cfg, method)
         loss = step_update(theta, idx, means, global_counts, lr, rows, cl, neg_rows, cfg=cfg, method=method,
                            n_total=n_total, own_base=cluster_offset)
         return theta, loss
@@ -164,19 +174,28 @@ def make_epoch_fn(cfg: NomadConfig, step_fn, steps_per_epoch: int):
     JAX package's epoch factory: means refreshed every
     ``cfg.mean_refresh_steps`` (default: once, at the start), lr annealed
     linearly from lr0 towards lr1, and step t's generator seeded from
-    (*epoch_key, t) in place of ``fold_in(epoch_key, t)``."""
+    (*epoch_key, t) in place of ``fold_in(epoch_key, t)``. Spans
+    (:mod:`repro_torch.core.trace`): ``nomad.epoch``, ``nomad.means`` at
+    each refresh, ``nomad.step`` at each step, and within the step
+    ``nomad.step.sample`` (twice: the generator here, the draw in
+    ``step_fn``) and :func:`step_update`'s three."""
     refresh = cfg.mean_refresh_steps or steps_per_epoch
 
     def epoch(theta, idx, lr0, lr1, epoch_key):
-        counts_f = idx["counts"].float()
-        means, step_losses = None, []
-        for t in range(steps_per_epoch):
-            if t % refresh == 0:
-                means = local_means(theta, idx["counts"], cfg.cluster_capacity)
-            lr = lr0 + (lr1 - lr0) * (t / steps_per_epoch)
-            theta, loss = step_fn(theta, idx, means, counts_f, lr, seeded_generator(theta.device, *epoch_key, t))
-            step_losses.append(loss)
-        return theta, torch.stack(step_losses).mean()
+        with span("nomad.epoch"):
+            counts_f = idx["counts"].float()
+            means, step_losses = None, []
+            for t in range(steps_per_epoch):
+                if t % refresh == 0:
+                    with span("nomad.means"):
+                        means = local_means(theta, idx["counts"], cfg.cluster_capacity)
+                lr = lr0 + (lr1 - lr0) * (t / steps_per_epoch)
+                with span("nomad.step"):
+                    with span("nomad.step.sample"):  # the step's draw continues in ``step_fn``
+                        gen = seeded_generator(theta.device, *epoch_key, t)
+                    theta, loss = step_fn(theta, idx, means, counts_f, lr, gen)
+                step_losses.append(loss)
+            return theta, torch.stack(step_losses).mean()
 
     return epoch
 
@@ -419,7 +438,7 @@ class NomadProjection:
 
         cfg, device = self.cfg, self.device
         x = prepare_inputs(x, caller="fit", chunk_rows=cfg.chunk_rows)
-        t0 = time.time()
+        t0 = time.perf_counter()
         events = as_callbacks(callbacks, callback)
         resume = self._resume_default if resume is None else resume
         ckdir = cfg.checkpoint_dir
@@ -468,31 +487,28 @@ class NomadProjection:
             sync_processes("index-cache")
 
         # ---- θ: checkpoint > warm start > fresh init ----------------------
-        t_init = time.time()
         start_epoch, resumed = 0, False
-        if resume and latest_step(ckdir) is not None:
-            tree, meta = Checkpointer(ckdir).restore({"theta": None})
-            theta0 = tree["theta"]
-            want = (index.n_clusters * index.capacity, cfg.out_dim)
-            if theta0.shape != want:
-                raise ValueError(f"checkpointed θ {theta0.shape} does not match the index layout {want}")
-            start_epoch, resumed = int(meta["epoch"]) + 1, True
-            stored = meta.get("config")
-            digest = _config_digest(cfg)
-            if stored is not None and {k: v for k, v in stored.items() if k in digest} != digest:
-                warnings.warn(
-                    "resuming with a config that differs from the one the checkpoint "
-                    "was written with: the continued run will not match an "
-                    "uninterrupted one"
-                )
-        if theta0 is None:
-            theta0 = self._init_theta(x, index)
-        strategy = resolve_strategy(self.strategy, cfg, method=self.method, mesh=self.mesh,
-                                    shard_axes=self.shard_axes, pod_axis=self.pod_axis)
-        theta = strategy.prepare(cfg, self.method, index, theta0, device)
-        synchronize(device)
-        stage_s["init"] = time.time() - t_init
-        stage_rss["init"] = rss_mb()
+        with stage("fit", "init", stage_s, device, stage_rss):
+            if resume and latest_step(ckdir) is not None:
+                tree, meta = Checkpointer(ckdir).restore({"theta": None})
+                theta0 = tree["theta"]
+                want = (index.n_clusters * index.capacity, cfg.out_dim)
+                if theta0.shape != want:
+                    raise ValueError(f"checkpointed θ {theta0.shape} does not match the index layout {want}")
+                start_epoch, resumed = int(meta["epoch"]) + 1, True
+                stored = meta.get("config")
+                digest = _config_digest(cfg)
+                if stored is not None and {k: v for k, v in stored.items() if k in digest} != digest:
+                    warnings.warn(
+                        "resuming with a config that differs from the one the checkpoint "
+                        "was written with: the continued run will not match an "
+                        "uninterrupted one"
+                    )
+            if theta0 is None:
+                theta0 = self._init_theta(x, index)
+            strategy = resolve_strategy(self.strategy, cfg, method=self.method, mesh=self.mesh,
+                                        shard_axes=self.shard_axes, pod_axis=self.pod_axis)
+            theta = strategy.prepare(cfg, self.method, index, theta0, device)
 
         # the writer thread commits epoch e's θ while epoch e + 1 runs; save
         # takes θ's host copy first, so the in-place epoch cannot reach it.
@@ -503,47 +519,47 @@ class NomadProjection:
             ckpt = Checkpointer(ckdir, n_shards=strategy.n_shards, keep=3, async_save=not multiprocess,
                                 primary=process_index() == 0)
         every = max(1, cfg.checkpoint_every_epochs)
-        t_epochs = time.time()
         lr0 = cfg.resolved_lr0()
         losses_, epoch_times, checkpoint_epochs = [], [], []
-        try:
-            for e in range(start_epoch, cfg.n_epochs):
-                te = time.time()
-                f0 = 1.0 - e / cfg.n_epochs
-                f1 = 1.0 - (e + 1) / cfg.n_epochs
-                if events is not None:
-                    events.on_epoch_start(EpochStartEvent(e, cfg.n_epochs, lr0 * f0, lr0 * f1, strategy.name))
-                theta, mloss = strategy.run_epoch(theta, e, lr0 * f0, lr0 * f1)
-                losses_.append(mloss)
-                epoch_times.append(time.time() - te)
-                if ckpt is not None and ((e + 1) % every == 0 or e == cfg.n_epochs - 1):
-                    # fetch is collective: every process gathers θ, one writes it
-                    ckpt.save(
-                        e,
-                        {"theta": strategy.fetch(theta)},
-                        sharded_keys=("theta",),
-                        metadata={
-                            "epoch": e,
-                            "config": dataclasses.asdict(cfg),
-                            "method": self.method,
-                            "strategy": strategy.name,
-                            "losses": list(losses_),
-                        },
-                    )
-                    if multiprocess:
-                        sync_processes(f"ckpt-{e}")
-                    checkpoint_epochs.append(e)
+        with stage("fit", "epochs", stage_s, device, stage_rss):
+            try:
+                for e in range(start_epoch, cfg.n_epochs):
+                    te = time.perf_counter()
+                    f0 = 1.0 - e / cfg.n_epochs
+                    f1 = 1.0 - (e + 1) / cfg.n_epochs
                     if events is not None:
-                        events.on_checkpoint(CheckpointEvent(e, e, ckdir, strategy.n_shards))
-                if events is not None:
-                    events.on_means_refresh(MeansRefreshEvent(e, strategy.refreshes_per_epoch(), strategy.name))
-                    emb_e = index.unpermute(strategy.fetch(theta)) if events.wants_embedding else None
-                    events.on_epoch_end(EpochEndEvent(e, cfg.n_epochs, mloss, epoch_times[-1], strategy.name, emb_e))
-        finally:
-            if ckpt is not None:
-                ckpt.wait()  # commit the save in flight, even on interruption
-        stage_s["epochs"] = time.time() - t_epochs
-        stage_rss["epochs"] = rss_mb()
+                        events.on_epoch_start(EpochStartEvent(e, cfg.n_epochs, lr0 * f0, lr0 * f1, strategy.name))
+                    theta, mloss = strategy.run_epoch(theta, e, lr0 * f0, lr0 * f1)
+                    losses_.append(mloss)
+                    epoch_times.append(time.perf_counter() - te)
+                    if ckpt is not None and ((e + 1) % every == 0 or e == cfg.n_epochs - 1):
+                        # fetch is collective: every process gathers θ, one writes it
+                        ckpt.save(
+                            e,
+                            {"theta": strategy.fetch(theta)},
+                            sharded_keys=("theta",),
+                            metadata={
+                                "epoch": e,
+                                "config": dataclasses.asdict(cfg),
+                                "method": self.method,
+                                "strategy": strategy.name,
+                                "losses": list(losses_),
+                            },
+                        )
+                        if multiprocess:
+                            sync_processes(f"ckpt-{e}")
+                        checkpoint_epochs.append(e)
+                        if events is not None:
+                            events.on_checkpoint(CheckpointEvent(e, e, ckdir, strategy.n_shards))
+                    if events is not None:
+                        events.on_means_refresh(MeansRefreshEvent(e, strategy.refreshes_per_epoch(), strategy.name))
+                        emb_e = index.unpermute(strategy.fetch(theta)) if events.wants_embedding else None
+                        events.on_epoch_end(
+                            EpochEndEvent(e, cfg.n_epochs, mloss, epoch_times[-1], strategy.name, emb_e)
+                        )
+            finally:
+                if ckpt is not None:
+                    ckpt.wait()  # commit the save in flight, even on interruption
 
         emb = index.unpermute(strategy.fetch(theta))
         meta = strategy.describe()
@@ -551,7 +567,7 @@ class NomadProjection:
             embedding=emb,
             index=index,
             losses=losses_,
-            wall_time_s=time.time() - t0,
+            wall_time_s=time.perf_counter() - t0,
             epoch_times=epoch_times,
             strategy=meta["strategy"],
             n_shards=meta["n_shards"],
@@ -642,7 +658,7 @@ class NomadProjection:
         from repro_torch.serve import FrozenMap, MapServer
 
         cfg, device = self.cfg, self.device
-        t0 = time.time()
+        t0 = time.perf_counter()
         events = as_callbacks(callbacks, None)
         index, theta_rows = self._previous_state()
         if index.capacity != cfg.cluster_capacity:
@@ -662,16 +678,16 @@ class NomadProjection:
             name = latest.name if latest is not None else ""
             return PartialFitResult(
                 embedding=index.unpermute(theta_rows), index=index, n_new=0, n_points=n_old,
-                losses=[], wall_time_s=time.time() - t0, affected_cells=np.zeros((0,), np.int64),
+                losses=[], wall_time_s=time.perf_counter() - t0, affected_cells=np.zeros((0,), np.int64),
                 version=name, parent_version=name,
             )
 
         # ---- place: the frozen map's serve path ---------------------------
-        t_place = time.time()
-        placed = MapServer(FrozenMap.from_index_theta(index, theta_rows, cfg, device=device)).transform(
-            new_x, seed=cfg.seed if seed is None else seed, return_neighbors=False
-        )
-        stage_s = {"place": time.time() - t_place}
+        stage_s: dict = {}
+        with stage("fit", "place", stage_s, device):
+            placed = MapServer(FrozenMap.from_index_theta(index, theta_rows, cfg, device=device)).transform(
+                new_x, seed=cfg.seed if seed is None else seed, return_neighbors=False
+            )
 
         # ---- version bookkeeping (the directory precedes a store spill) ---
         version_name, parent_name, version_dir = "", "", ""
@@ -698,56 +714,54 @@ class NomadProjection:
         stage_s.update(upd.stage_s)
 
         # ---- refine: cheap epochs over the affected cells -----------------
-        t_refine = time.time()
         refine_epochs = cfg.partial_refine_epochs if refine_epochs is None else refine_epochs
         losses_, epoch_times = [], []
-        if refine_epochs > 0 and upd.affected_cells.size:
-            strategy = PartialRefineStrategy(upd.affected_cells)
-            theta = strategy.prepare(cfg, self.method, upd.index, upd.theta_rows, device)
-            # from the last fit epoch's lr scale, annealed to 0 again
-            lr_r = cfg.resolved_lr0() / max(cfg.n_epochs, 1)
-            for e in range(refine_epochs):
-                te = time.time()
-                f0 = 1.0 - e / refine_epochs
-                f1 = 1.0 - (e + 1) / refine_epochs
-                if events is not None:
-                    events.on_epoch_start(EpochStartEvent(e, refine_epochs, lr_r * f0, lr_r * f1, strategy.name))
-                theta, mloss = strategy.run_epoch(theta, e, lr_r * f0, lr_r * f1)
-                losses_.append(mloss)
-                epoch_times.append(time.time() - te)
-                if events is not None:
-                    emb_e = upd.index.unpermute(strategy.fetch(theta)) if events.wants_embedding else None
-                    events.on_epoch_end(
-                        EpochEndEvent(e, refine_epochs, mloss, epoch_times[-1], strategy.name, emb_e)
-                    )
-            theta_new = strategy.fetch(theta)
-        else:
-            theta_new = upd.theta_rows
-        stage_s["refine"] = time.time() - t_refine
+        with stage("fit", "refine", stage_s, device):
+            if refine_epochs > 0 and upd.affected_cells.size:
+                strategy = PartialRefineStrategy(upd.affected_cells)
+                theta = strategy.prepare(cfg, self.method, upd.index, upd.theta_rows, device)
+                # from the last fit epoch's lr scale, annealed to 0 again
+                lr_r = cfg.resolved_lr0() / max(cfg.n_epochs, 1)
+                for e in range(refine_epochs):
+                    te = time.perf_counter()
+                    f0 = 1.0 - e / refine_epochs
+                    f1 = 1.0 - (e + 1) / refine_epochs
+                    if events is not None:
+                        events.on_epoch_start(EpochStartEvent(e, refine_epochs, lr_r * f0, lr_r * f1, strategy.name))
+                    theta, mloss = strategy.run_epoch(theta, e, lr_r * f0, lr_r * f1)
+                    losses_.append(mloss)
+                    epoch_times.append(time.perf_counter() - te)
+                    if events is not None:
+                        emb_e = upd.index.unpermute(strategy.fetch(theta)) if events.wants_embedding else None
+                        events.on_epoch_end(
+                            EpochEndEvent(e, refine_epochs, mloss, epoch_times[-1], strategy.name, emb_e)
+                        )
+                theta_new = strategy.fetch(theta)
+            else:
+                theta_new = upd.theta_rows
 
         # ---- version: a self-contained directory and its lineage entry ----
         if lineage is not None:
-            t_version = time.time()
-            step = max(refine_epochs - 1, 0)
-            ckpt = Checkpointer(version_dir, keep=2, async_save=False)
-            ckpt.save(
-                step,
-                {"theta": theta_new},
-                metadata={
-                    "epoch": step,
-                    "config": dataclasses.asdict(cfg),
-                    "method": self.method,
-                    "strategy": "partial",
-                    "losses": list(losses_),
-                    "parent_version": parent_name,
-                },
-            )
-            ckpt.wait()
-            save_index(upd.index, index_cache_path(version_dir))
-            lineage.record(name=version_name, dirname=version_name, parent=parent_name,
-                           fingerprint=upd.index.fingerprint, n_points=upd.index.n_points,
-                           kind="partial_fit")
-            stage_s["version"] = time.time() - t_version
+            with stage("fit", "version", stage_s, device):
+                step = max(refine_epochs - 1, 0)
+                ckpt = Checkpointer(version_dir, keep=2, async_save=False)
+                ckpt.save(
+                    step,
+                    {"theta": theta_new},
+                    metadata={
+                        "epoch": step,
+                        "config": dataclasses.asdict(cfg),
+                        "method": self.method,
+                        "strategy": "partial",
+                        "losses": list(losses_),
+                        "parent_version": parent_name,
+                    },
+                )
+                ckpt.wait()
+                save_index(upd.index, index_cache_path(version_dir))
+                lineage.record(name=version_name, dirname=version_name, parent=parent_name,
+                               fingerprint=upd.index.fingerprint, n_points=upd.index.n_points,
+                               kind="partial_fit")
 
         emb = upd.index.unpermute(theta_new)
         result = PartialFitResult(
@@ -756,7 +770,7 @@ class NomadProjection:
             n_new=M,
             n_points=upd.index.n_points,
             losses=losses_,
-            wall_time_s=time.time() - t0,
+            wall_time_s=time.perf_counter() - t0,
             epoch_times=epoch_times,
             refine_epochs=refine_epochs,
             affected_cells=upd.affected_cells,

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
@@ -571,8 +572,11 @@ def stream_chunks(store: EmbeddingStore, chunk_rows: int, *, depth: int = 2, enc
     ``(N, chunk_rows)``, never on the store's shard layout, which is what
     makes streamed results identical across containers. ``encoded=True``
     yields :meth:`EmbeddingStore.read_encoded`'s rows instead, for a
-    consumer that decodes bfloat16 bits itself (on the device).
+    consumer that decodes bfloat16 bits itself (on the device). The
+    seconds the consumer waits on the reader add to the counter
+    ``stream.read_wait_s`` (:mod:`repro_torch.core.trace`).
     """
+    from repro_torch.core import trace
     from repro_torch.data.loader import Prefetcher
 
     n = store.shape[0]
@@ -588,7 +592,9 @@ def stream_chunks(store: EmbeddingStore, chunk_rows: int, *, depth: int = 2, enc
     pf = Prefetcher(make, depth=depth, max_steps=n_chunks)
     try:
         for _ in range(n_chunks):
+            t0 = time.perf_counter()
             _step, (s, chunk) = next(pf)
+            trace.count("stream.read_wait_s", time.perf_counter() - t0)
             yield s, chunk
     finally:
         pf.close()

@@ -41,16 +41,16 @@ Devices: :class:`IndexBuilder` runs on ``cuda`` unless the caller passes
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
-import sys
 import time
-from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import NomadConfig
+from repro_torch.core import trace
 from repro_torch.core.runtime import process_count, process_index, resolve_device
 from repro_torch.core.strategy import largest_divisor_leq, sync_processes
 from repro_torch.index import kmeans as km
@@ -72,11 +72,6 @@ def seeded_generator(device: torch.device, *key: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(
         (int(seed[0]) << 31) ^ int(seed[1])
     )
-
-
-def synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 # ---------------------------------------------------------------------------
@@ -340,15 +335,6 @@ def spill_sharded_scatter(store, perm: np.ndarray, n_rows: int, dim: int, out_di
     return ShardedStore(out_dir)
 
 
-def rss_mb() -> float:
-    """This process's peak resident set so far (MB): ``ru_maxrss``, which
-    Linux gives in kilobytes and macOS in bytes."""
-    import resource
-
-    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-    return rss / (1024.0 * 1024.0) if sys.platform == "darwin" else rss / 1024.0
-
-
 # ---------------------------------------------------------------------------
 # IndexBuilder
 # ---------------------------------------------------------------------------
@@ -367,6 +353,10 @@ class BuildReport:
     stragglers: int = 0
     # the process's peak host RSS (MB) at the end of each stage
     stage_rss_mb: dict = dataclasses.field(default_factory=dict)
+    # full passes of k-means over the rows: the LSH seeding and every E-step
+    kmeans_passes: int = 0
+    # host seconds the build waited on the chunk reader (``stream_chunks``)
+    read_wait_s: float = 0.0
 
 
 def resolve_build_strategy(spec: Optional[str], cfg: NomadConfig, mesh=None, device=None):
@@ -442,16 +432,9 @@ class IndexBuilder:
             name, mesh = resolve_build_strategy(self.spec, cfg, self.mesh, device)
         stage_s: dict = {}
         stage_rss: dict = {}
-
-        @contextmanager
-        def stage(label):
-            t0 = time.time()
-            yield
-            synchronize(device)
-            stage_s[label] = stage_s.get(label, 0.0) + (time.time() - t0)
-            stage_rss[label] = rss_mb()
-
-        t0 = time.time()
+        stage = functools.partial(trace.stage, "build", stage_s=stage_s, device=device, stage_rss=stage_rss)
+        before = trace.counts()
+        t0 = time.perf_counter()
         if name == "streamed":
             index, stragglers = self._build_streamed(as_store(x), stage)
         elif name == "local":
@@ -459,10 +442,17 @@ class IndexBuilder:
         else:
             index, stragglers = self._build_slots(as_store(x) if name == "distributed" else x, mesh, stage,
                                                   distributed=name == "distributed")
+        total_s = time.perf_counter() - t0
+        after = trace.counts()
+
+        def added(counter):
+            return after.get(counter, 0) - before.get(counter, 0)
+
         self.report = BuildReport(
             strategy=name, n_shards=1 if mesh is None else mesh.size,
-            total_s=time.time() - t0, stage_s=stage_s, stragglers=stragglers,
-            stage_rss_mb=stage_rss,
+            total_s=total_s, stage_s=stage_s, stragglers=stragglers,
+            stage_rss_mb=stage_rss, kmeans_passes=int(added("kmeans.passes")),
+            read_wait_s=float(added("stream.read_wait_s")),
         )
         return index
 

@@ -8,6 +8,9 @@ scan's freeze-on-converge rule: once the largest centroid shift drops
 under ``tol`` the *pre-update* centroids are kept. The M-step sums rows
 with ``index_put_(accumulate=True)``, which on CUDA sorts the indices and
 adds duplicates in a fixed order, so EM repeats bit for bit on the card.
+Each full pass over the rows (the LSH seeding, every E-step, the one that
+converges included) adds one to the counter ``kmeans.passes``
+(:mod:`repro_torch.core.trace`).
 
 :func:`kmeans_centroids_streamed` runs the same LSH init and EM over an
 on-disk store, one chunk at a time (the streamed build's kmeans stage).
@@ -23,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.data.store import stream_chunks
 from repro_torch.kernels.kmeans_assign.ops import assign_nearest
 
@@ -55,6 +59,7 @@ def lsh_init_centroids(
     buckets seed the centroids; empty seats fall back to random points.
     """
     n, d = x.shape
+    trace.count("kmeans.passes")
     planes = lsh_planes(gen, d, n_clusters, x.device)
     codes = lsh_codes(x, planes)
     n_buckets = 2 ** planes.shape[1]
@@ -90,6 +95,7 @@ def em_loop(x, cents0, n_clusters: int, n_iters: int, tol: float, block: int):
     ones = torch.ones((x.shape[0],), device=x.device)
     cents = cents0
     for _ in range(n_iters):
+        trace.count("kmeans.passes")
         a, _ = blocked_assign(x, cents, block)
         cnts = scatter_sum(n_clusters, a, ones)
         new = scatter_sum(n_clusters, a, xf) / torch.clamp_min(cnts, 1.0)[:, None]
@@ -186,6 +192,7 @@ def kmeans_fit_sharded(gen: torch.Generator, x_local, n_clusters: int, mesh, n_i
         ones = torch.ones((xr.shape[0],), device=xr.device)
         return torch.cat([scatter_sum(n_out, index, xr.float()), scatter_sum(n_out, index, ones)[:, None]], 1)
 
+    trace.count("kmeans.passes")
     planes = lsh_planes(gen, d, n_clusters, home)
     n_buckets = 2 ** planes.shape[1]
     sums, cnts = exchange([stats(n_buckets, lsh_codes(xr, planes.to(xr.device)), xr) for xr in real])
@@ -205,6 +212,7 @@ def kmeans_fit_sharded(gen: torch.Generator, x_local, n_clusters: int, mesh, n_i
 
     blk = max(1, min(block, rows_per))
     for _ in range(n_iters):
+        trace.count("kmeans.passes")
         parts = []
         for xr in real:
             a, _ = blocked_assign(xr, cents.to(xr.device), blk) if xr.shape[0] else (
@@ -350,6 +358,7 @@ def kmeans_centroids_streamed(
         return device_chunks(store, chunk_rows, device)
 
     if cents0 is None:
+        trace.count("kmeans.passes")
         planes = lsh_planes(gen, d, n_clusters, device)
         n_buckets = 2 ** planes.shape[1]
         sums = torch.zeros((n_buckets, d), dtype=torch.float32, device=device)
@@ -364,6 +373,7 @@ def kmeans_centroids_streamed(
 
     cents = cents0.float()
     for _ in range(n_iters):
+        trace.count("kmeans.passes")
         sums = torch.zeros((n_clusters, d), dtype=torch.float32, device=device)
         cnts = torch.zeros((n_clusters,), dtype=torch.float32, device=device)
         for _s, xb, w in chunks():

@@ -224,8 +224,9 @@ def _run(args, device, backend: str, t_start: float) -> int:
     from repro_torch.configs import get_nomad
     from repro_torch.core.nomad import NomadProjection
     from repro_torch.core.strategy import FitCallbacks
+    from repro_torch.core.trace import rss_mb
     from repro_torch.data.store import as_store
-    from repro_torch.index.build import IndexBuilder, rss_mb
+    from repro_torch.index.build import IndexBuilder
     from repro_torch.launch import mesh
 
     if args.host_devices:
