@@ -42,9 +42,10 @@ from repro_torch.configs.base import NomadConfig
 from repro_torch.core import losses
 from repro_torch.core.pca import pca_init, pca_init_streamed
 from repro_torch.core.runtime import process_count, process_index, resolve_device
-from repro_torch.core.trace import span, stage
+from repro_torch.core.trace import count, span, stage
 from repro_torch.index.ann import AnnIndex, data_fingerprint, index_cache_path, load_index, save_index
-from repro_torch.index.build import IndexBuilder, seeded_generator
+from repro_torch.index.build import IndexBuilder, generator_seed, seeded_generator
+from repro_torch.kernels import registry
 
 # ---------------------------------------------------------------------------
 # Sampling helpers (cluster-major layout)
@@ -108,6 +109,7 @@ def step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, *, cfg, met
     ``nomad.step.scatter``.
     """
     n_total = n_total or cfg.n_points
+    scale = -lr  # lr: a float, or a CUDA graph's 0-d tensor
     with span("nomad.step.gather"):
         pos_rows = idx["knn_idx"][rows]  # (B, k)
         pos_w = idx["knn_w"][rows]
@@ -128,9 +130,9 @@ def step_update(theta, idx, means, counts_f, lr, rows, cl, neg_rows, *, cfg, met
         g_i, g_pos, g_neg = torch.autograd.grad(loss, (th_i, th_pos, th_neg))
     with span("nomad.step.scatter"):
         d = theta.shape[1]
-        theta.index_put_((rows,), g_i * -lr, accumulate=True)
-        theta.index_put_((pos_rows.reshape(-1),), g_pos.reshape(-1, d) * -lr, accumulate=True)
-        theta.index_put_((neg_rows.reshape(-1),), g_neg.reshape(-1, d) * -lr, accumulate=True)
+        theta.index_put_((rows,), g_i * scale, accumulate=True)
+        theta.index_put_((pos_rows.reshape(-1),), g_pos.reshape(-1, d) * scale, accumulate=True)
+        theta.index_put_((neg_rows.reshape(-1),), g_neg.reshape(-1, d) * scale, accumulate=True)
     return loss.detach()
 
 
@@ -174,7 +176,8 @@ def make_epoch_fn(cfg: NomadConfig, step_fn, steps_per_epoch: int):
     JAX package's epoch factory: means refreshed every
     ``cfg.mean_refresh_steps`` (default: once, at the start), lr annealed
     linearly from lr0 towards lr1, and step t's generator seeded from
-    (*epoch_key, t) in place of ``fold_in(epoch_key, t)``. Spans
+    (*epoch_key, t) in place of ``fold_in(epoch_key, t)``. Every step runs
+    eagerly (counter ``nomad.step.eager``). Spans
     (:mod:`repro_torch.core.trace`): ``nomad.epoch``, ``nomad.means`` at
     each refresh, ``nomad.step`` at each step, and within the step
     ``nomad.step.sample`` (twice: the generator here, the draw in
@@ -195,19 +198,122 @@ def make_epoch_fn(cfg: NomadConfig, step_fn, steps_per_epoch: int):
                         gen = seeded_generator(theta.device, *epoch_key, t)
                     theta, loss = step_fn(theta, idx, means, counts_f, lr, gen)
                 step_losses.append(loss)
+            count("nomad.step.eager", steps_per_epoch)
             return theta, torch.stack(step_losses).mean()
 
     return epoch
 
 
+class StepGraph:
+    """The local epoch's SGD step captured once as a CUDA graph and
+    replayed for every step, so that the card, and not the host's
+    dispatch of some 60 launches a step, paces the epoch.
+
+    A strategy owns one (:class:`repro_torch.core.strategy.LocalStrategy`)
+    and hands it to :func:`run_epoch`, which takes it for an epoch of θ on
+    the card with more than :attr:`WARMUP` steps; on the CPU and in a
+    shorter epoch the steps run eagerly (:func:`make_epoch_fn`). The graph
+    holds the whole step: the draw, the gathers, K1 forward and backward
+    and the three scatters into θ. Its static inputs are θ (updated in
+    place), the index arrays, a means buffer (refreshed eagerly at each of
+    the epoch's refreshes), the counts, a float32 scalar for lr and a
+    generator registered with the graph. Before each replay the host seeds
+    that generator from the step's key (:func:`generator_seed`): the
+    captured Philox kernels read the seed at offset 0, as the eager step's
+    fresh :func:`seeded_generator` is read, so a graphed epoch equals the
+    eager one bit for bit in θ and in the mean loss.
+
+    The capture is keyed by what the code can observe (θ's storage and
+    shape, the index arrays, the sampler, the method and the batch) and is
+    taken again when any of them changes. It follows the schedule's own
+    first :attr:`WARMUP` steps, run eagerly on a side stream, so no extra
+    step moves θ. A replay adds the launches its capture recorded to the
+    kernel registry's counts. Counters ``nomad.step.graphed`` and
+    ``nomad.step.eager``; on a replayed step the spans are ``nomad.step``,
+    ``nomad.step.sample`` (the seeding) and ``nomad.step.graph`` (the
+    replay); the step's inner spans open at the capture alone.
+    """
+
+    WARMUP = 3  # eager steps before the capture
+
+    def __init__(self):
+        self.key = None
+
+    def engages(self, theta: torch.Tensor, steps: int) -> bool:
+        return theta.is_cuda and steps > self.WARMUP
+
+    def _capture(self, step_fn, theta, idx, key) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        self.gen = torch.Generator(device=theta.device)
+        self.graph.register_generator_state(self.gen)
+        with registry.recorded_launches() as self.launches, torch.cuda.graph(self.graph):
+            _, self.loss = step_fn(theta, idx, self.means, self.counts_f, self.lr, self.gen)
+        self.key, self.theta, self.idx = key, theta, idx  # the captured storage stays alive
+
+    def epoch(self, step_fn, key, theta, idx, cfg: NomadConfig, steps: int, lr0: float, lr1: float, epoch_key):
+        """:func:`make_epoch_fn`'s epoch over the graph of ``step_fn``,
+        captured first when ``key`` is not the capture's."""
+        dev = theta.device
+        refresh = cfg.mean_refresh_steps or steps
+        losses = torch.empty((steps,), dtype=torch.float32, device=dev)
+
+        def lr(t):
+            return lr0 + (lr1 - lr0) * (t / steps)
+
+        def refresh_means(t):
+            if t % refresh == 0:
+                with span("nomad.means"):
+                    self.means.copy_(local_means(theta, idx["counts"], cfg.cluster_capacity))
+
+        with span("nomad.epoch"):
+            first = 0
+            if key != self.key:
+                self.key = None  # until the new capture stands
+                self.means = torch.empty((idx["counts"].shape[0], theta.shape[1]), dtype=torch.float32, device=dev)
+                self.counts_f = idx["counts"].float()
+                self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+                first = self.WARMUP
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    for t in range(first):
+                        refresh_means(t)
+                        with span("nomad.step"):
+                            with span("nomad.step.sample"):
+                                gen = seeded_generator(dev, *epoch_key, t)
+                            _, loss = step_fn(theta, idx, self.means, self.counts_f, lr(t), gen)
+                        losses[t].copy_(loss)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                self._capture(step_fn, theta, idx, key)
+            for t in range(first, steps):
+                refresh_means(t)
+                with span("nomad.step"):
+                    with span("nomad.step.sample"):
+                        self.gen.manual_seed(generator_seed(*epoch_key, t))
+                    with span("nomad.step.graph"):
+                        self.lr.fill_(lr(t))
+                        self.graph.replay()
+                        registry.add_launches(self.launches)
+                        losses[t].copy_(self.loss)
+            count("nomad.step.eager", first)
+            count("nomad.step.graphed", steps - first)
+            return theta, losses.mean()
+
+
 def run_epoch(theta, idx, cfg: NomadConfig, method: str, steps: int, lr0: float, lr1: float, epoch: int,
-              *, sampler=sample_step_rows, key: Optional[tuple] = None, n_total: Optional[int] = None):
+              *, sampler=sample_step_rows, key: Optional[tuple] = None, n_total: Optional[int] = None,
+              graph: Optional[StepGraph] = None):
     """One epoch of ``steps`` steps (:func:`make_epoch_fn` over
     :func:`make_step_fn`): step t draws its rows with ``sampler`` from a
     generator seeded from (*key, epoch, t), ``key`` (seed + 1,) by
-    default. Returns (theta, mean loss as a 0-d tensor)."""
+    default. With ``graph`` the steps replay its capture of the step
+    where it engages (:class:`StepGraph`), with the same result. Returns
+    (theta, mean loss as a 0-d tensor)."""
     key = (cfg.seed + 1,) if key is None else key
     step = make_step_fn(cfg, method=method, n_total=n_total, sampler=sampler)
+    if graph is not None and graph.engages(theta, steps):
+        capture_key = (theta.data_ptr(), tuple(theta.shape), id(idx), sampler, method, cfg.batch_size)
+        return graph.epoch(step, capture_key, theta, idx, cfg, steps, lr0, lr1, (*key, epoch))
     return make_epoch_fn(cfg, step, steps)(theta, idx, lr0, lr1, (*key, epoch))
 
 

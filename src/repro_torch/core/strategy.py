@@ -217,12 +217,18 @@ class ExecutionStrategy:
 
 class LocalStrategy(ExecutionStrategy):
     """Single-device loop (``core/nomad.py:run_epoch``). ``prepare`` moves
-    θ and the index arrays to the device; ``run_epoch`` steps θ in place."""
+    θ and the index arrays to the device; ``run_epoch`` steps θ in place,
+    on the card by replaying the strategy's capture of the step
+    (:class:`repro_torch.core.nomad.StepGraph`, taken anew at each
+    ``prepare``)."""
 
     name = "local"
 
     def prepare(self, cfg: NomadConfig, method: str, index, theta0, device) -> torch.Tensor:
+        from repro_torch.core.nomad import StepGraph
+
         self.cfg, self.method = cfg, method
+        self.graph = StepGraph()
         self.steps = cfg.resolved_steps_per_epoch()
         counts = np.asarray(index.counts)
         self.idx = {
@@ -238,7 +244,7 @@ class LocalStrategy(ExecutionStrategy):
     def run_epoch(self, theta, epoch: int, lr0: float, lr1: float):
         from repro_torch.core.nomad import run_epoch
 
-        theta, loss = run_epoch(theta, self.idx, self.cfg, self.method, self.steps, lr0, lr1, epoch)
+        theta, loss = run_epoch(theta, self.idx, self.cfg, self.method, self.steps, lr0, lr1, epoch, graph=self.graph)
         return theta, float(loss)
 
     def fetch(self, theta: torch.Tensor) -> np.ndarray:
@@ -286,6 +292,7 @@ class PartialRefineStrategy(LocalStrategy):
         theta, loss = run_epoch(
             theta, self.idx, self.cfg, self.method, self.steps, lr0, lr1, epoch,
             sampler=sample_partial_rows, key=(self.cfg.seed + 11, self.n_points), n_total=self.n_points,
+            graph=self.graph,
         )
         return theta, float(loss)
 

@@ -15,11 +15,17 @@ see of the fit's epoch step and of the index build.
   as ``kernels.registry.count_launch`` counts launches: ``kmeans.passes``
   (full passes of k-means over the rows: the LSH seeding and every
   E-step) and ``stream.read_wait_s`` (host seconds a consumer of
-  ``data.store.stream_chunks`` waited on its reader thread).
+  ``data.store.stream_chunks`` waited on its reader thread),
+  ``nomad.step.graphed`` and ``nomad.step.eager`` (the epoch loop's steps
+  that replayed the captured CUDA graph of the step, and those that ran
+  eagerly: a capture's warm-up, the CPU, short epochs).
 
 The spans of the epoch step (``core/nomad.py``) are ``nomad.epoch``,
 ``nomad.means``, ``nomad.step`` and its children ``nomad.step.sample``,
-``nomad.step.gather``, ``nomad.step.k1`` and ``nomad.step.scatter``.
+``nomad.step.gather``, ``nomad.step.k1`` and ``nomad.step.scatter``. A
+replayed step opens ``nomad.step.sample`` (its seeding) and
+``nomad.step.graph`` (the replay) instead: the step's inner spans open
+at the capture alone.
 """
 
 from __future__ import annotations

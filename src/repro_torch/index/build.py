@@ -65,13 +65,18 @@ BUILD_AXIS = "build"
 BUILD_STRATEGIES = ("auto", "local", "sharded", "distributed")
 
 
+def generator_seed(*key: int) -> int:
+    """The seed :func:`seeded_generator` gives its generator for ``key``:
+    a CUDA graph's registered generator, seeded with it before a replay,
+    draws what the fresh generator draws."""
+    seed = np.random.SeedSequence([int(k) for k in key]).generate_state(2, np.uint32)
+    return (int(seed[0]) << 31) ^ int(seed[1])
+
+
 def seeded_generator(device: torch.device, *key: int) -> torch.Generator:
     """A generator on ``device`` seeded from a tuple of integers (the
     port's stand-in for ``jax.random.fold_in`` keying)."""
-    seed = np.random.SeedSequence([int(k) for k in key]).generate_state(2, np.uint32)
-    return torch.Generator(device=device).manual_seed(
-        (int(seed[0]) << 31) ^ int(seed[1])
-    )
+    return torch.Generator(device=device).manual_seed(generator_seed(*key))
 
 
 # ---------------------------------------------------------------------------

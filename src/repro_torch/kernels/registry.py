@@ -13,7 +13,9 @@ kernel launched, and nowhere else, so a run can show which kernels its
 path went through (:func:`launch_counts`, :func:`reset_launch_counts`).
 The count goes through :func:`count_launch`, under a lock: the service
 launches from several worker threads at once, and a bare ``+= 1`` there
-could lose counts.
+could lose counts. A CUDA graph's capture records its launches instead
+(:func:`recorded_launches`), and each replay adds them
+(:func:`add_launches`).
 Kernel names follow the JAX package's registry; the nomad_step,
 cauchy_mean and frozen_attract pairs are two entries each, one per
 direction.
@@ -119,13 +121,44 @@ def uncounted():
         _UNCOUNTED.depth = depth
 
 
+_RECORDING: list = []  # the launches of the open recorded_launches() block, if one is open
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Inside the block, launches from every thread are recorded in the
+    dict it yields ({kernel name: launches}) and not counted: a CUDA
+    graph's capture launches nothing, and each replay adds what its
+    capture recorded (:func:`add_launches`). A capture's backward counts
+    on autograd's device thread, hence not thread-local."""
+    got: dict = {}
+    with _COUNT_LOCK:
+        _RECORDING.append(got)
+    try:
+        yield got
+    finally:
+        with _COUNT_LOCK:
+            _RECORDING.remove(got)
+
+
 def count_launch(kernel: Kernel) -> None:
     """Add one to ``kernel``'s launches; a CUDA wrapper calls this right
     after its kernel launched, and nowhere else."""
     if getattr(_UNCOUNTED, "depth", 0):
         return
     with _COUNT_LOCK:
-        kernel.launches += 1
+        if _RECORDING:
+            _RECORDING[-1][kernel.name] = _RECORDING[-1].get(kernel.name, 0) + 1
+        else:
+            kernel.launches += 1
+
+
+def add_launches(launches: dict) -> None:
+    """Add ``{kernel name: launches}`` to the counts: a CUDA graph's replay
+    runs the launches its capture recorded."""
+    with _COUNT_LOCK:
+        for name, n in launches.items():
+            _KERNELS[name].launches += n
 
 
 def launch_counts() -> dict[str, int]:

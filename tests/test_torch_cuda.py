@@ -176,6 +176,93 @@ def test_fit_on_card_is_deterministic_and_uses_the_kernels(card):
     np.testing.assert_array_equal(r1.embedding, r2.embedding)
 
 
+# ---------------------------------------------------------------------------
+# The epoch's step replayed as a CUDA graph (core/nomad.py:StepGraph)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pubmed_widths():
+    """An index of ~60k rows at PubMed's step widths (k 15, S 16, B 1024,
+    K 64) built on the card, and a θ start."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.index.build import IndexBuilder
+
+    cfg = NomadConfig(n_points=60000, dim=32, n_clusters=64, n_neighbors=15, n_noise=128,
+                      n_exact_negatives=16, batch_size=1024, n_epochs=2)
+    x, _ = gaussian_mixture(cfg.n_points, cfg.dim, n_components=64, seed=5)
+    index = IndexBuilder(cfg, device=torch.device("cuda", 0)).build(x)
+    theta0 = np.random.default_rng(0).normal(size=(index.n_clusters * index.capacity, 2)).astype(np.float32)
+    return cfg, index, theta0
+
+
+def _epochs(card, cfg, index, theta0, make, method, graphed, replace_at=None):
+    """Per epoch of the schedule: (θ, mean loss, the launch counts' growth,
+    the step counters), through ``make()``'s strategy, its graph dropped
+    when not ``graphed``; θ's storage replaced before epoch ``replace_at``."""
+    from repro_torch.core import trace
+
+    s = make()
+    theta = s.prepare(cfg, method, index, theta0, card)
+    if not graphed:
+        s.graph = None
+    lr0, out = cfg.resolved_lr0(), []
+    for e in range(cfg.n_epochs):
+        if e == replace_at:
+            theta = theta.clone()
+        before = registry.launch_counts()
+        trace.reset()
+        theta, loss = s.run_epoch(theta, e, lr0 * (1 - e / cfg.n_epochs), lr0 * (1 - (e + 1) / cfg.n_epochs))
+        torch.cuda.synchronize()
+        grew = {n: c - before[n] for n, c in registry.launch_counts().items()}
+        out.append((theta.clone(), loss, grew, trace.counts(), s))
+    return out
+
+
+def _steps_counted(counts):
+    return counts.get("nomad.step.eager", 0), counts.get("nomad.step.graphed", 0)
+
+
+@pytest.mark.parametrize("strategy,method,refresh", [("local", "nomad", 0), ("local", "infonc", 0),
+                                                     ("partial", "nomad", 0), ("local", "nomad", 5)])
+def test_graphed_epochs_equal_eager_epochs_bit_for_bit(card, pubmed_widths, strategy, method, refresh):
+    """The first epoch (warm-up, capture, replays) and the second (replays
+    only) give the eager epochs' θ and mean loss bit for bit, and count
+    the eager epochs' launches."""
+    from repro_torch.core.strategy import LocalStrategy, PartialRefineStrategy
+
+    cfg, index, theta0 = pubmed_widths
+    cfg = cfg.replace(mean_refresh_steps=refresh)
+    make = LocalStrategy if strategy == "local" else lambda: PartialRefineStrategy(np.arange(0, 64, 8))
+    eager = _epochs(card, cfg, index, theta0, make, method, graphed=False)
+    graphed = _epochs(card, cfg, index, theta0, make, method, graphed=True)
+    steps = graphed[0][4].steps
+    assert steps > graphed[0][4].graph.WARMUP
+    assert not torch.equal(eager[-1][0].cpu(), torch.from_numpy(theta0))
+    for e, ((th_e, loss_e, grew_e, _, _), (th_g, loss_g, grew_g, _, _)) in enumerate(zip(eager, graphed)):
+        assert torch.equal(th_e, th_g), e
+        assert loss_e == loss_g, e
+        assert grew_e == grew_g, e
+        assert grew_g["nomad_step_fwd"] == (steps if method == "nomad" else 0)
+    warm = graphed[0][4].graph.WARMUP
+    assert [_steps_counted(g[3]) for g in graphed] == [(warm, steps - warm), (0, steps)]
+    assert [_steps_counted(e[3]) for e in eager] == [(steps, 0), (steps, 0)]
+
+
+def test_the_step_is_captured_again_after_theta_is_replaced(card, pubmed_widths):
+    from repro_torch.core.strategy import LocalStrategy
+
+    cfg, index, theta0 = pubmed_widths
+    eager = _epochs(card, cfg, index, theta0, LocalStrategy, "nomad", graphed=False, replace_at=1)
+    graphed = _epochs(card, cfg, index, theta0, LocalStrategy, "nomad", graphed=True, replace_at=1)
+    for (th_e, loss_e, _, _, _), (th_g, loss_g, _, _, _) in zip(eager, graphed):
+        assert torch.equal(th_e, th_g) and loss_e == loss_g
+    s = graphed[-1][4]
+    warm = s.graph.WARMUP
+    assert [_steps_counted(g[3]) for g in graphed] == [(warm, s.steps - warm)] * 2
+
+
 def _cauchy_args(g, B, K, d, device):
     """θ, μ, w, own and ḡ as the JAX spec draws them."""
     return (_randn(g, B, d, device=device, scale=3.0), _randn(g, K, d, device=device, scale=3.0),
