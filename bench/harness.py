@@ -35,7 +35,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from bench import datagen, judge, tracing
+from bench import datagen, judge, ranks, tracing
 
 F64 = torch.float64
 
@@ -119,12 +119,15 @@ def _sync(device):
 
 
 class Work:
-    """Set-up, one unit of the window, the profiled unit and the check."""
+    """Set-up, one unit of the window, the profiled unit and the check.
+    In a cell on several cards each rank has its own, on its own card
+    (``rank`` of ``world``), and every rank runs each of its steps."""
 
     span = "bench.unit"
 
-    def __init__(self, cell: Cell, seed: int, device: torch.device):
+    def __init__(self, cell: Cell, seed: int, device: torch.device, rank: int = 0, world: int = 1):
         self.cell, self.seed, self.device = cell, int(seed), device
+        self.rank, self.world = rank, world
         self.traffic = cell.traffic
         self.cfg = nomad_config(cell.config, seed)
         self.cfgd = dataclasses.asdict(self.cfg)
@@ -181,13 +184,22 @@ class Work:
 # ---------------------------------------------------------------------------
 
 
-def run(root, workload: str, seed: int, seconds: float, trace: bool, device, t_start: float):
+def run(root, workload: str, seed: int, seconds: float, trace: bool, device, t_start: float,
+        rank: int = 0, world: int = 1):
     """One run of ``workload``: (the result line's object, with ``checks``
-    last; set-up's parts and the check in host seconds). Never prints."""
+    last; set-up's parts and the check in host seconds). Never prints.
+
+    With ``world`` > 1 this is rank ``rank`` of a cell on several cards,
+    in a process group already joined (``bench/ranks.py``): every rank
+    sets up, then runs the window's units, the profiled slice's units and
+    the check in step; rank 0's clock closes the window. Only rank 0
+    returns a result line (the others return ``None``): every card's peak,
+    the worst rank's numbers, busy and traced seconds averaged over the
+    cards, and the per-layer metrics from rank 0's slice."""
     device = torch.device(device)
     cell = load_cell(root, workload)
     tr = cell.traffic
-    work = load_kind(cell.bench_dir, tr["kind"])(cell, seed, device)
+    work = load_kind(cell.bench_dir, tr["kind"])(cell, seed, device, rank=rank, world=world)
     on_cuda = device.type == "cuda"
     t = time.perf_counter()
     if on_cuda:
@@ -198,15 +210,21 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, device, t_s
     work.part("context", t)
     work.setup()
     _sync(device)
+    if world > 1:
+        ranks.barrier(device)
     setup_s = time.perf_counter() - t_start
 
-    unit_s, t0 = [], time.perf_counter()
+    unit_s, agree_s, t0 = [], [], time.perf_counter()
     while True:
         ts = time.perf_counter()
         work.unit()
         te = time.perf_counter()
         unit_s.append(te - ts)
-        if te - t0 >= seconds:
+        done = te - t0 >= seconds
+        if world > 1:
+            done = ranks.rank0_says(done, device)
+            agree_s.append(time.perf_counter() - te)
+        if done:
             break
     window = work.window_stats(te - t0, len(unit_s), unit_s)
     work.parts["unit_s_0_25_50_75_95_100"] = [float(v) for v in np.percentile(unit_s, [0, 25, 50, 75, 95, 100])]
@@ -221,6 +239,18 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, device, t_s
     t = time.perf_counter()
     numbers = work.check()
     work.part("check", t)
+    busy = (summary["busy_s"], summary["window_s"]) if summary is not None else None
+    if world > 1:
+        per_rank = ranks.gather((mem_peak, len(unit_s), numbers, busy))
+        if rank:
+            return None, work.parts
+        peaks = [p for p, _, _, _ in per_rank]
+        mem_peak, numbers = max(peaks), ranks.worst([n for _, _, n, _ in per_rank])
+        if busy is not None:  # busy and traced seconds, averaged over the cards
+            busy = tuple(sum(b[i] for _, _, _, b in per_rank) / world for i in (0, 1))
+        work.parts["card_memory_peak_bytes"] = peaks
+        work.parts["rank_units"] = [u for _, u, _, _ in per_rank]
+        work.parts["agree_us_mean_max"] = [1e6 * sum(agree_s) / len(agree_s), 1e6 * max(agree_s)]
     correct, checks = judge.verdict(numbers, cell.limits)
 
     metrics = {}
@@ -242,12 +272,11 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, device, t_s
 
     dev = {"platform": "gpu" if on_cuda else device.type,
            "kind": torch.cuda.get_device_name(device) if on_cuda else device.type,
-           "count": 1, "memory_peak_bytes": mem_peak}
+           "count": world, "memory_peak_bytes": mem_peak}
     out = {"correct": bool(correct) and window["units"] > 0, "attempted": window["units"], "failed": 0,
            "metrics": metrics, "device": dev}
     if summary is not None:
-        dev["busy_s"] = summary["busy_s"]
-        dev["window_s"] = summary["window_s"]
+        dev["busy_s"], dev["window_s"] = busy
         out["breakdown"] = {"device_ops": summary["device_ops"], "idle_gaps": summary["idle_gaps"]}
     out["checks"] = checks
     return out, work.parts

@@ -3,7 +3,9 @@
 added as new files and entries only. Besides the training cell, the tiny
 cells drive the ``builds`` and ``queries`` kinds, which no cell of
 ``BENCHMARK.json`` uses yet: their end-to-end and per-layer metrics, and
-their limits, are entered here."""
+their limits, are entered here. The cells of ``RANK_CELLS`` run on 2 or 4
+ranks the test-only kind ``ranks`` (``ranks_kind.py``), some with a fault
+on one rank."""
 
 from __future__ import annotations
 
@@ -20,6 +22,11 @@ TINY = dict(name="tiny", n_points=3000, dim=16, n_clusters=8, n_neighbors=5, n_n
             build_block_rows=1024, chunk_rows=1024)
 DATA = dict(kind="hierarchical_mixture", n_groups=2, per_group=8, group_spread=0.8, spread=0.3)
 CELLS = {"tiny.train": "train_epochs", "tiny.build": "index_build", "tiny.serve": "tiny_queries"}
+RANKS_TRAFFIC = {"ranks": {}, "ranks_fault": {"fault_rank": 1}, "ranks_exit": {"exit_rank": 1, "exit_after": 3},
+                 "ranks_hang": {"hang_rank": 1, "hang_after": 3}, "ranks_jax": {"jax_rank": 1}}
+RANK_CELLS = {"tiny.ranks2": ("ranks", 2), "tiny.ranks4": ("ranks", 4), "tiny.ranks2.fault": ("ranks_fault", 2),
+              "tiny.ranks2.exit": ("ranks_exit", 2), "tiny.ranks2.hang": ("ranks_hang", 2),
+              "tiny.ranks2.jax": ("ranks_jax", 2)}
 SEED = 2**31 + 11
 INDEX_LIMITS = {"layout": 0, "kmeans_gap": 0.01, "assign_gap": 0.01, "knn_gap": 0.01, "knn_w_gap": 0.01}
 SERVE_LIMITS = {"map_layout": 0, "means_gap": 1e-4, "query_layout": 0, "cell_gap": 1e-2, "qknn_gap": 1e-3,
@@ -27,11 +34,15 @@ SERVE_LIMITS = {"map_layout": 0, "means_gap": 1e-4, "query_layout": 0, "cell_gap
 END_TO_END = [{"name": "build_s", "unit": "s", "better": "lower", "bound": 0.25, "source": "host_clock",
                "workloads": ["tiny.build"]},
               {"name": "serve_qps", "unit": "queries/s", "better": "higher", "bound": 0.25, "source": "host_clock",
-               "workloads": ["tiny.serve"]}]
+               "workloads": ["tiny.serve"]},
+              {"name": "ranks_unit_s", "unit": "s", "better": "lower", "bound": 0.25, "source": "host_clock",
+               "workloads": list(RANK_CELLS)}]
 PER_LAYER = {"build_s": ("index build", ["build.stragglers_s", "build_mfu", "k23_roofline", "idle.build"]),
-             "serve_qps": ("serving", ["serve.batch_p95_ms", "serve_mfu", "k45_roofline", "idle.serve"])}
+             "serve_qps": ("serving", ["serve.batch_p95_ms", "serve_mfu", "k45_roofline", "idle.serve"]),
+             "ranks_unit_s": ("device", ["idle.ranks"])}
 
-UNITS = {"build.stragglers_s": "s", "serve.batch_p95_ms": "ms", "idle.build": "%", "idle.serve": "%"}
+UNITS = {"build.stragglers_s": "s", "serve.batch_p95_ms": "ms", "idle.build": "%", "idle.serve": "%",
+         "idle.ranks": "%"}
 
 
 def make(dest: Path) -> Path:
@@ -48,10 +59,20 @@ def make(dest: Path) -> Path:
     tq = json.loads((ROOT / "bench/traffic/place_queries.json").read_text())
     tq.update(request_rows=128, pool_requests=4, check_requests=3, fit_epochs=2, trace_units=2)
     (dest / "bench/traffic/tiny_queries.json").write_text(json.dumps(tq))
+    shutil.copy(ROOT / "bench/tests/ranks_kind.py", dest / "bench/kinds/ranks.py")
+    shutil.copy(ROOT / "bench/metrics/idle.train.py", dest / "bench/metrics/idle.ranks.py")
+    for name, faults in RANKS_TRAFFIC.items():
+        mix = dict(kind="ranks", trace_units=2, end_to_end={"ranks_unit_s": "seconds_per_unit"}, **faults)
+        (dest / f"bench/traffic/{name}.json").write_text(json.dumps(mix))
+    for name in RANK_CELLS:
+        (dest / f"bench/limits/{name}.json").write_text(json.dumps({"sum_gap": 1e-6}))
     spec["configs"].append({"name": "tiny", "source": "https://arxiv.org/abs/2505.15511",
                             "file": "bench/configs/tiny.json", "reduced": ["n_points"], "why": "CPU tests"})
     for name, traffic in CELLS.items():
         spec["workloads"].append({"name": name, "config": "tiny", "traffic": traffic, "chips": 1, "why": "CPU tests"})
+    for name, (traffic, chips) in RANK_CELLS.items():
+        spec["workloads"].append({"name": name, "config": "tiny", "traffic": traffic, "chips": chips,
+                                  "why": "tests of a cell on several cards"})
     for m in spec["end_to_end"] + spec["per_layer"]:
         if "workloads" in m:
             m["workloads"] += [w.replace("pubmed.", "tiny.") for w in m["workloads"] if w.startswith("pubmed.")]
